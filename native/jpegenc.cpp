@@ -527,7 +527,7 @@ static void emit_headers(BitWriter& bw, int w, int h, int ncomp,
 // Block sources: where the quantized (q100: just rounded) coefficients come
 // from. PixelSource runs the host DCT on u8 planes; CoeffSource consumes
 // pre-quantized int16 blocks the device DCT emitted (transposed 8x8 layout,
-// block raster order) — the TPU computes the JPEG front-end (level shift +
+// block raster order) — the device computes the JPEG front-end (level shift +
 // FDCT + quantize) in-graph and the host pays entropy coding only.
 // Both emit the block ZIGZAG-ORDERED as contiguous int16 into zz[0..63]
 // with a sentinel at zz[64]: nonzero (stops the zero-run scan with no

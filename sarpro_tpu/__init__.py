@@ -1,12 +1,12 @@
-"""SARPRO-TPU — a TPU-native Sentinel-1 GRD processing framework.
+"""sarpro_tpu — a Sentinel-1 GRD processing framework on JAX/XLA.
 
-A ground-up JAX/XLA/Pallas re-architecture with the full capability surface
+A ground-up JAX/XLA re-architecture with the full capability surface
 of the SARPRO reference (bogwi/sarpro v0.3.0): SAFE → GeoTIFF/JPEG conversion
 with SAR-specific autoscaling (standard/robust/adaptive/equalized/CLAHE/
 tamed), dual-pol operations, synthetic RGB composition, resize/pad, on-device
 reprojection, metadata embedding and sidecars, a typed library API, a CLI,
 and batch processing — with the dense per-pixel compute chain running as
-fused XLA programs on TPU.
+fused XLA programs on an NVIDIA GPU (or the CPU backend).
 
 Public API mirrors the reference's crate root re-exports (src/lib.rs:217-240).
 """

@@ -350,7 +350,7 @@ def process_safe_to_path(input, output, params: ProcessingParams,
     (core/fused.py — the benchmark path): one device dispatch per band,
     within ≤1 histogram bin of the exact mode's window placement.
     shard_devices>=2 (or -1 for all local devices) additionally shards the
-    scene's rows across a device mesh — stats become ICI collectives
+    scene's rows across a device mesh — stats become cross-device collectives
     (SURVEY §2.5's intra-scene TP/SP analogue); implies fast mode."""
     if fast or shard_devices:
         return _process_safe_to_path_fast(input, output, params,
@@ -446,7 +446,7 @@ def _process_safe_to_path_fast(input, output, params: ProcessingParams,
                 pad=params.pad, resample_alg=alg0)
 
     # the warp executes inside the reader open; request row sharding of its
-    # sampling pass over the device mesh (VERDICT r3 item 4 — the
+    # sampling pass over the device mesh (the
     # reference's headline config is warp + synRGB). Setting the var to 0
     # (its default) when not sharding keeps one open call.
     from .io import warp as warp_mod

@@ -1,4 +1,4 @@
-"""SARPRO-TPU command line interface.
+"""SARPRO command line interface.
 
 Flag-for-flag parity with the reference CLI (src/cli/args.rs:9-77): same
 names, same defaults (tiff / u8 / vv / clahe / original size), same batch
@@ -29,7 +29,7 @@ logger = logging.getLogger("sarpro")
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="sarpro", description="SARPRO CLI (TPU-native)", add_help=True
+        prog="sarpro", description="SARPRO CLI (JAX/XLA, NVIDIA GPU or CPU)", add_help=True
     )
     p.add_argument("--version", action="version", version=f"sarpro {__version__}")
     p.add_argument("-i", "--input", type=Path,
@@ -73,16 +73,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device-batch", type=int, default=4, metavar="K",
                    help="Batch+fast mode: stack K same-shape multiband-JPEG "
                         "scenes into one vmapped device dispatch (1 = "
-                        "per-scene). On TPU, bucketed scenes may differ "
-                        "from per-scene output by <=1 u8 step (both within "
-                        "the fast-mode contract)")
+                        "per-scene). Bucketed scenes may differ from "
+                        "per-scene output by <=1 u8 step (both within the "
+                        "fast-mode contract)")
     p.add_argument("--fast", action="store_true",
                    help="Fused single-program pipeline (benchmark path): one "
                         "device dispatch per band; autoscale windows within "
                         "1 histogram bin of exact mode")
     p.add_argument("--shard-devices", type=int, default=0, metavar="N",
                    help="Shard one scene's compute across N local devices "
-                        "(rows split over a mesh, stats via ICI "
+                        "(rows split over a mesh, stats via "
                         "collectives); -1 = all devices; implies --fast")
     p.add_argument("--resume", action="store_true",
                    help="Batch mode: skip products whose output already exists")

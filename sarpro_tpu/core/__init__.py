@@ -1,4 +1,4 @@
-"""Core processing: the dense per-pixel compute chain, TPU-first.
+"""Core processing: the dense per-pixel compute chain, on device.
 
 Layering (mirrors the reference's src/core/processing/ but re-architected for
 XLA): device-side array programs live in `pipeline`, `clahe`, `resize`,

@@ -1,4 +1,4 @@
-"""CLAHE — Contrast Limited Adaptive Histogram Equalization, TPU-first.
+"""CLAHE — Contrast Limited Adaptive Histogram Equalization, on device.
 
 Reference semantics (src/core/processing/autoscale.rs:220-345, call site
 :571-608): 8×8 tiles over the image, 256 bins, clip limit 2.0×average,
@@ -6,14 +6,14 @@ uniform excess redistribution with round-robin remainder, normalized CDFs,
 then per-pixel bilinear interpolation between the 4 neighboring tile CDFs
 with a −0.5 tile-center offset; invalid pixels → 0.
 
-TPU decomposition:
+Device decomposition:
   1. device: normalize dB into [0,1] with the p01/p99 window and compute all
      64 per-tile 256-bin histograms in ONE fused scatter pass (tile id and
      bin id combine into a flat 16384-way scatter-add);
   2. host:   clip + redistribute + CDF on the tiny (64, 256) table in f64 —
      bit-faithful to the reference's integer truncations;
-  3. device: per-pixel gather of 4 CDF values from the 16 KB table (lives in
-     VMEM) + bilinear blend + quantize, one fused elementwise program.
+  3. device: per-pixel gather of 4 CDF values from the 16 KB table (cache-
+     resident) + bilinear blend + quantize, one fused elementwise program.
 
 Ragged edge tiles (rows/cols not divisible by 8) are handled by computing
 per-tile extents on the host exactly like the reference's min() bounds.
@@ -95,10 +95,7 @@ def _clip_redistribute_cdf(hists: np.ndarray, rows: int, cols: int,
 @functools.partial(jax.jit, static_argnames=("tile_h", "tile_w"))
 def _apply_cdfs(norm, mask, cdfs, max_val, tile_h: int, tile_w: int):
     """Device pass 2: bilinear interpolation between 4 neighbor-tile CDFs
-    (reference: autoscale.rs:307-343) + quantize (reference: :595-607).
-
-    The 4-corner lookup runs as the one-hot MXU kernel (ops/kernels.py):
-    XLA's generic gather is ~20x slower on TPU for this pattern."""
+    (reference: autoscale.rs:307-343) + quantize (reference: :595-607)."""
     from ..ops import clahe_lookup
 
     rows, cols = norm.shape

@@ -358,7 +358,7 @@ def save_multiband_batch_fast(
     of (dn1, dn2, output_path, metadata). All scenes run as ONE vmapped
     device program (parallel/sharded.synrgb_batch on the local mesh) —
     one transfer + one dispatch + one fetch for the whole bucket, which
-    amortizes per-scene RPC/dispatch cost in the batch driver. Returns the
+    amortizes per-scene dispatch cost in the batch driver. Returns the
     list of deferred write Futures (or None entries if written inline).
 
     Caller guarantees: JPEG output, equal dn shapes, non-big scenes.

@@ -56,9 +56,8 @@ def _stats(db, mask, row_axis: str | None = None):
     """count/min/max + 4096-bin histogram + percentiles, all in-graph.
 
     With `row_axis` set (shard_map over row-sharded rasters), the local
-    reductions become cross-shard collectives — per-shard Pallas histograms
-    combine with one psum over ICI (SURVEY.md §2.5), so the MXU kernels stay
-    active under sharding instead of falling back to XLA scatters."""
+    reductions become cross-shard collectives — per-shard histograms combine
+    with one psum (SURVEY.md §2.5)."""
     count = jnp.sum(mask, dtype=jnp.int32)
     big = jnp.float32(np.inf)
     mn = jnp.min(jnp.where(mask, db, big))
@@ -112,7 +111,7 @@ def _stats_finalize(hist, count, mn, mx):
     histogram adds commute exactly, so every execution strategy — fused,
     streamed (any chunk size), row-sharded (any shard count) — computes
     byte-identical mean/std from the same (4096,) arithmetic, making
-    Adaptive bit-stable across strategies (VERDICT r4 item 7; the old f32
+    Adaptive bit-stable across strategies (the old f32
     moment sums reordered across chunk/shard boundaries). Accuracy cost vs
     exact moments is O(bin width) = span/4096 (~0.02 dB on real scenes),
     inside the fast path's documented f32-vs-f64 tolerance; exact mode
@@ -267,7 +266,7 @@ def _clahe(db, mask, low, high, max_val, rows: int, cols: int,
 
     Row-sharded mode (`row_axis`): tile geometry is computed over the GLOBAL
     raster (rows × row_shards); each shard builds tile histograms from its
-    local rows (Pallas one-hot kernel), one psum combines them, and the
+    local rows, one psum combines them, and the
     bilinear apply runs locally with the shard's global row offset — the
     tile-CDF allgather of SURVEY.md §2.5 realized as a single collective."""
     rows_global = rows * row_shards
@@ -302,15 +301,15 @@ def _resample_dn(x, out_rows: int, out_cols: int, filter_name: str):
     """Downsample-on-read equivalent, in-graph (static shapes).
 
     The first (row) pass consumes the input's native dtype — u16 DN rasters
-    stream from HBM at half the f32 traffic (the banded kernel casts
-    in-VMEM; the tap-loop fallback casts per tap)."""
-    from .resize import _apply_axis0_banded
+    stream from device memory at half the f32 traffic (the tap loop casts
+    per tap)."""
+    from .resize import _apply_axis0
 
     in_rows, in_cols = x.shape
     if in_rows != out_rows:
-        x = _apply_axis0_banded(x, filter_name, in_rows, out_rows)
+        x = _apply_axis0(x, filter_name, in_rows, out_rows)
     if in_cols != out_cols:
-        x = _apply_axis0_banded(x.T, filter_name, in_cols, out_cols).T
+        x = _apply_axis0(x.T, filter_name, in_cols, out_cols).T
     return x.astype(jnp.float32)
 
 
@@ -336,15 +335,8 @@ def _band_u8(dn, strategy: AutoscaleStrategy, tamed_copol: bool | None,
 
 
 def _synrgb_default(b1, b2):
-    from ..ops import synrgb_lookup, synrgb_lookup_formula
-    from ..ops.kernels import use_pallas
-    from .synthetic_rgb import default_formula_tables
+    from ..ops import synrgb_lookup
 
-    tabs = default_formula_tables() if use_pallas() else None
-    if tabs is not None:
-        rgb = synrgb_lookup_formula(b1.ravel(), b2.ravel(), *tabs,
-                                    guard_b2=True)
-        return rgb.reshape(b1.shape + (3,))
     lut_r, lut_g, lut_b = default_luts()
     rgb = synrgb_lookup(b1.ravel(), b2.ravel(), jnp.asarray(lut_r),
                         jnp.asarray(lut_g), jnp.asarray(lut_b))
@@ -389,27 +381,14 @@ def _synrgb_suppressed(b1, b2, row_axis: str | None = None,
     (reference: synthetic_rgb.rs:88-178)."""
     from ..ops import histogram, synrgb_lookup
 
-    from ..ops import synrgb_lookup_formula
-    from ..ops.kernels import use_pallas
-    from .synthetic_rgb import suppressed_formula_tables_stacked
-
     i1 = b1.astype(jnp.int32)
     i2 = b2.astype(jnp.int32)
-    hist = histogram(jnp.concatenate([i1.ravel(), i2.ravel()]), 256)
+    hist = histogram(b1, 256) + histogram(b2, 256)
     if row_axis is not None:
         hist = jax.lax.psum(hist, row_axis)
     floor_c = _suppressed_floor(hist, (b1.size + b2.size) * row_shards)
-
-    stacked = suppressed_formula_tables_stacked() if use_pallas() else None
-    if stacked is not None:
-        # data-dependent floor selects the per-floor formula tables in-graph
-        idx = floor_c.astype(jnp.int32) - 3  # floor_c is integer-valued >= 3
-        tabs = tuple(jnp.take(a, idx, axis=0) for a in stacked)
-        rgb = synrgb_lookup_formula(i1.ravel(), i2.ravel(), *tabs,
-                                    guard_b2=False)
-    else:
-        lut_r, lut_g, lut_b = _suppressed_luts(floor_c)
-        rgb = synrgb_lookup(i1.ravel(), i2.ravel(), lut_r, lut_g, lut_b)
+    lut_r, lut_g, lut_b = _suppressed_luts(floor_c)
+    rgb = synrgb_lookup(i1.ravel(), i2.ravel(), lut_r, lut_g, lut_b)
     rgb = rgb.reshape(b1.shape + (3,))
     water = ((i1.astype(jnp.float32) <= floor_c)
              & (i2.astype(jnp.float32) <= floor_c))[..., None]
@@ -467,7 +446,7 @@ def synrgb_pipeline(
 
     With `row_axis`/`row_shards` (called inside shard_map on a row-sharded
     raster): inputs are the LOCAL row blocks, reductions psum over the axis,
-    and the Pallas kernels run per shard (parallel/sharded.py). Resampling
+    and the histograms run per shard (parallel/sharded.py). Resampling
     and padding are whole-raster ops and unsupported in that mode.
     """
     b1 = _synrgb_band(vv_dn, strategy, True, target_size, pad, resample_alg,
@@ -522,8 +501,8 @@ def _dct_pair_split():
     The per-block 2D FDCT in the host's transposed layout is one 64x64
     linear map: out[(i*8+j)] = sum_{l,k} T[i,k]*T[j,l] * blk[l,k]. Two
     horizontally adjacent blocks share a (128,128) block-diagonal operator
-    so the contraction fills the MXU's native tile (the M->128 shape rule
-    from ops/kernels.py) instead of two K=8 contractions.
+    so the contraction is one 128-wide matrix product instead of two K=8
+    contractions.
 
     Input-row order: the operator's rows are ordered [(col-in-pair kk)*8 +
     row-in-block l] — exactly the row-major flatten of the TRANSPOSED
@@ -564,10 +543,8 @@ def jpeg_dct_planes(planes_u8):
     one minor-dim swapaxes — whose row-major flatten IS the pair-of-blocks
     128-vector sequence for the row-permuted operator (_dct_pair_split),
     and one (...,128)x(128,128) block-diagonal matmul applies the whole
-    2D FDCT as three single-pass bf16 MXU contractions (split operator,
-    exact pixel operand). Replaces two K=8 HIGHEST einsums: 60.2 → 19.1 ms
-    per 72 Mpx RGB (with ycbcr_planes) on v5e, previously the heaviest
-    device stage in benchmarks/device_profile.json."""
+    2D FDCT as three single-pass bf16 matrix products (split operator,
+    exact pixel operand) in place of two K=8 f32 HIGHEST einsums."""
     c, rows, cols = planes_u8.shape
     nbh, nbw = -(-rows // 8), -(-cols // 8)
     npair = -(-nbw // 2)

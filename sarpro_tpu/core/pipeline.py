@@ -8,7 +8,7 @@ Reference behavior being reproduced (see file:line cites on each function):
   * U8 double-normalization quirk     — autoscale.rs:348-364, :662-704
   * Tamed synRGB band autoscale       — autoscale.rs:710-742
 
-TPU-first structure: three device passes (dB+min/max, histogram+moments,
+Device structure: three device passes (dB+min/max, histogram+moments,
 quantize) mirroring the reference's two CPU passes plus its separate quantize
 loop — each pass is one fused elementwise+reduction XLA program over the
 whole raster, so HBM is read the minimum number of times. The only
@@ -65,7 +65,6 @@ def _hist_moments(db, mask, mn, mx):
     The reference computes Welford mean/std in pass 1; we compute
     midpoint-shifted sum/sumsq here (same two-pass count) which is
     numerically equivalent within f32 tolerance and keeps pass 1 minimal.
-    The histogram runs as the one-hot MXU kernel (ops/kernels.py) on TPU.
     """
     from ..ops import histogram
 

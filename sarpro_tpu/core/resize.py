@@ -1,4 +1,4 @@
-"""Resampling and padding, TPU-first.
+"""Resampling and padding.
 
 Reference behavior (src/core/processing/resize.rs, padding.rs):
   * long-side target preserving aspect, warn + no-op on upscale (:6-30);
@@ -7,7 +7,7 @@ Reference behavior (src/core/processing/resize.rs, padding.rs):
     the (scale_x, scale_y, pad_left, pad_top) metadata (:91-236);
   * center padding into max_dim² (padding.rs:5-49).
 
-TPU design: resampling is a separable weighted gather — for each output row a
+Device design: resampling is a separable weighted gather — for each output row a
 fixed window of K input rows and a (out, K) weight matrix, precomputed on the
 host in f64 (Pillow/fast_image_resize convolution bounds+normalization), then
 applied on device as gather + einsum along each axis. Static shapes; the
@@ -145,6 +145,9 @@ def _build_coeffs(in_size: int, out_size: int, filter_name: str):
 
 
 _TAP_LOOP_MAX = 24
+# Precision of the > _TAP_LOOP_MAX contraction, read when it is traced: on
+# the GPU a DEFAULT-precision f32 dot may run in TF32 (~3 decimal digits).
+CONTRACTION_PRECISION = jax.lax.Precision.HIGHEST
 
 
 @jax.jit
@@ -152,10 +155,12 @@ def _resample_axis0(x, starts, weights):
     """Weighted gather along axis 0: out[i] = Σ_k w[i,k] · x[starts[i]+k].
 
     For small tap counts, unroll a static loop of whole-row gathers — each is
-    a contiguous-row copy that XLA lowers near memcpy speed — instead of one
-    giant (out, K, cols) gather that materializes K× the output. The source
-    may be integer-typed (DN rasters): rows are gathered in the narrow dtype
-    and cast after, halving HBM traffic for u16 inputs.
+    a contiguous-row copy that XLA fuses into one loop with the multiply-adds
+    — instead of one giant (out, K, cols) gather that materializes K× the
+    output. The source may be integer-typed (DN rasters): rows are gathered
+    in the narrow dtype and cast after, halving memory traffic for u16
+    inputs. Large reductions (> _TAP_LOOP_MAX taps, e.g. lanczos
+    20000 -> 1024) contract the gathered window at CONTRACTION_PRECISION.
     """
     k = weights.shape[1]
     if k <= _TAP_LOOP_MAX:
@@ -170,7 +175,8 @@ def _resample_axis0(x, starts, weights):
                    0, x.shape[0] - 1)
     g = jnp.take(x, idx.reshape(-1), axis=0).reshape(idx.shape + x.shape[1:])
     return jnp.einsum("ok,okc->oc", weights, g.astype(jnp.float32),
-                      preferred_element_type=jnp.float32)
+                      preferred_element_type=jnp.float32,
+                      precision=CONTRACTION_PRECISION)
 
 
 @jax.jit
@@ -178,24 +184,10 @@ def _nearest_axis0(x, idx):
     return jnp.take(x, idx, axis=0)
 
 
-def _apply_axis0(x, s_np, w_np, out_n: int):
-    """Axis-0 resample via the tap-loop of whole-row gathers. Used by the
-    quantized (Pillow-bit-exact) resize, whose per-tap f32 sum order is part
-    of the exactness contract; the DN/plane paths use `_apply_axis0_banded`
-    below (round 1's banded kernel was slower, but that one dispatched ~10k
-    lane-padded (TPIX,1) blocks — the round-2 kernel DMAs 8-row bands and is
-    ~3x the tap-loop on the 400 MP row pass)."""
-    return _resample_axis0(x, jnp.asarray(s_np), jnp.asarray(w_np))
-
-
-def _apply_axis0_banded(x, filter_name: str, in_n: int, out_n: int):
-    """Axis-0 resample preferring the banded-DMA Pallas kernel (TPU);
-    falls back to the tap-loop off-TPU or outside kernel preconditions."""
-    from ..ops.resample_kernel import band_resample_axis0
-
-    out = band_resample_axis0(x, in_n, out_n, filter_name)
-    if out is not None:
-        return out
+def _apply_axis0(x, filter_name: str, in_n: int, out_n: int):
+    """Axis-0 resample of `x` from in_n to out_n rows with `filter_name`'s
+    coefficients (per-tap f32 sum order is part of the quantized resize's
+    Pillow-exactness contract)."""
     s, w = _build_coeffs(in_n, out_n, filter_name)
     return _resample_axis0(x, jnp.asarray(s), jnp.asarray(w))
 
@@ -212,9 +204,9 @@ def resample_plane(
         y = _nearest_axis0(x, jnp.asarray(ri, jnp.int32))
         return _nearest_axis0(y.T, jnp.asarray(ci, jnp.int32)).T
     if in_rows != out_rows:
-        x = _apply_axis0_banded(x, filter_name, in_rows, out_rows)
+        x = _apply_axis0(x, filter_name, in_rows, out_rows)
     if in_cols != out_cols:
-        x = _apply_axis0_banded(x.T, filter_name, in_cols, out_cols).T
+        x = _apply_axis0(x.T, filter_name, in_cols, out_cols).T
     return x
 
 
@@ -236,11 +228,10 @@ def _resize_quantized(data, original_cols, original_rows, target_cols, target_ro
     we quantize between the passes to match."""
     x = jnp.asarray(data).reshape(original_rows, original_cols).astype(jnp.float32)
     if original_cols != target_cols:
-        s, w = _build_coeffs(original_cols, target_cols, "lanczos3")
-        x = cast(_apply_axis0(x.T, s, w, target_cols).T).astype(jnp.float32)
+        x = cast(_apply_axis0(x.T, "lanczos3", original_cols,
+                              target_cols).T).astype(jnp.float32)
     if original_rows != target_rows:
-        s, w = _build_coeffs(original_rows, target_rows, "lanczos3")
-        x = _apply_axis0(x, s, w, target_rows)
+        x = _apply_axis0(x, "lanczos3", original_rows, target_rows)
     return cast(x)
 
 

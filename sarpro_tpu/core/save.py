@@ -135,7 +135,7 @@ def save_processed_multiband_image_sequential(
     """Two-band save with sequential band staging to bound peak memory
     (reference: save.rs:172-406). Band 1's intermediates are released before
     band 2 is processed — same discipline as the reference's explicit drops
-    (save.rs:239-255), which on TPU keeps only one full-res dB raster in HBM
+    (save.rs:239-255), which keeps only one full-res dB raster in device memory
     at a time."""
     output = Path(output)
     operation_label = operation.metadata_label

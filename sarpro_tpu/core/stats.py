@@ -2,12 +2,12 @@
 
 This is the *control* half of the autoscale family (reference:
 src/core/processing/autoscale.rs:7-160 and :368-562). The array passes (dB,
-min/max, moments, 4096-bin histogram, quantize) run on the TPU (see
+min/max, moments, 4096-bin histogram, quantize) run on the device (see
 pipeline.py); this module turns their tiny outputs (a 4096-vector + 5 scalars)
 into clip windows and gammas with bit-faithful f64 arithmetic, exactly as the
 reference computes them on the CPU.
 
-Design note (TPU-first): strategy selection is data-dependent branching over
+Design note (device-first): strategy selection is data-dependent branching over
 a handful of scalars. Putting it on the host keeps the device programs
 branch-free and statically shaped; the chosen (low, high, gamma) re-enter the
 jitted quantize stage as scalar arguments, so no recompilation occurs across

@@ -10,10 +10,10 @@ Reference semantics (src/core/processing/synthetic_rgb.rs):
   * mode dispatchers (:72-79, :182-197) — all SyntheticRgbMode values alias
     Default (deliberate; confirmed at CHANGELOG.md:70-71).
 
-TPU structure: the LUTs are built host-side in float32 numpy — bit-identical
-to the reference's f32 LUT precomputation — and applied on device as three
-gathers from VMEM-resident tables (256 B + 256 B + 64 KB). Output is
-(H, W, 3) interleaved u8.
+Device structure: the LUTs are built host-side in float32 numpy —
+bit-identical to the reference's f32 LUT precomputation — and applied on
+device as three gathers from cache-resident tables (256 B + 256 B + 64 KB).
+Output is (H, W, 3) interleaved u8.
 """
 from __future__ import annotations
 
@@ -64,145 +64,7 @@ def default_luts() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return lut_r, lut_g, blue.reshape(-1)  # blue flat index = (b1 << 8) | b2
 
 
-# -- formulaic kernel tables (ops/kernels.py synrgb_lookup_formula) ---------
-#
-# The blue LUT is round(clip(((r+eps)/(g+eps))^0.1 * 255 * gain)) of values
-# the kernel already selects, so on TPU the 64K-entry table select is
-# replaced by ln-table selection + exp — plus an exact correction list for
-# every (b1,b2) pair whose f64 formula value lies within SYNF_MARGIN of a
-# rounding boundary (or disagrees with the f32-pipeline table outright).
-# SYNF_MARGIN must exceed the on-chip formula error vs the f64 value
-# (measured ~2e-5 on v5e; see benchmarks/tpu_validate.py which asserts
-# bit-exactness over the full 256x256 domain every round).
-SYNF_MARGIN = 3e-4
-_SYNF_SENTINEL = np.float32(-1000.0)  # ln(0) stand-in; exp underflows to 0
-
-
-def formula_tables(lut_r, lut_g, lut_b, eps, gain, guard_b2: bool):
-    """Host-side tables for the formulaic synRGB kernel.
-
-    Returns (tr, tg, amb_id, amb_val) float32 numpy arrays:
-      tr (64,16): rows 0:16 = lut_r[a*16+b] by [b,a]; rows 16:64 = the
-        ln plane ln(lut_r+eps) + 10*ln(255*gain) (gain folded; -1000
-        sentinel at 0) as THREE bf16 split terms t0/t1/t2 so the kernel's
-        stage-1 select is ONE single-pass bf16 MXU matmul (the one-hot
-        operand is exact in bf16) instead of a multi-pass HIGHEST
-        emulation; the kernel folds (t0+t1)+t2 in f32 and the ambiguity
-        set below is computed against that exact folded value
-      tg (64,16): same for lut_g without the gain fold
-      amb_id (PAD,1) / amb_val (1,PAD): packed b1*256+b2 ids and exact
-        table values of the boundary-ambiguous pairs (padded with -1/0)
-    """
-    from ..ops.kernels import _SYNF_AMB_PAD
-
-    lr = np.asarray(lut_r, np.float64)
-    lg = np.asarray(lut_g, np.float64)
-    tab = np.asarray(lut_b, np.uint8).reshape(256, 256)
-    eps64 = np.float64(np.float32(eps))
-    scale64 = np.float64(np.float32(255.0) * np.float32(gain))
-    with np.errstate(divide="ignore"):
-        lnr = np.where(lr + eps64 > 0, np.log(lr + eps64), _SYNF_SENTINEL)
-        lng = np.where(lg + eps64 > 0, np.log(lg + eps64), _SYNF_SENTINEL)
-    lnr_fold = np.where(lnr <= _SYNF_SENTINEL, _SYNF_SENTINEL,
-                        lnr + 10.0 * np.log(scale64))
-
-    import ml_dtypes
-
-    def split3(ln32):
-        """bf16 hi + two residual terms of an f32 plane, plus the exact
-        f32 value the kernel reconstructs as fl32((t0+t1)+t2)."""
-        t0 = ln32.astype(ml_dtypes.bfloat16).astype(np.float32)
-        r1 = ln32 - t0
-        t1 = r1.astype(ml_dtypes.bfloat16).astype(np.float32)
-        t2 = (r1 - t1).astype(ml_dtypes.bfloat16).astype(np.float32)
-        return t0, t1, t2, (t0 + t1) + t2
-
-    def pack2(vals, lns):
-        m = np.empty((64, 16), np.float32)
-        m[0:16] = vals.reshape(16, 16).T.astype(np.float32)  # [b, a]
-        t0, t1, t2, dev = split3(lns.reshape(16, 16).T.astype(np.float32))
-        m[16:32], m[32:48], m[48:64] = t0, t1, t2
-        return m, dev.T.reshape(-1)  # dev back in [a*16+b] order
-
-    tr, dev_lnr = pack2(lr, lnr_fold)
-    tg, dev_lng = pack2(lg, lng)
-
-    # f64 reference formula over the full domain -> ambiguity set; ALSO
-    # evaluate with the device's exact folded f32 ln values so split
-    # rounding can never move a pair across an integer boundary silently
-    a64 = np.exp(0.1 * (lnr[:, None] - lng[None, :])) * scale64
-    ac = np.clip(a64, 0.0, 255.0)
-    cand = np.floor(ac + 0.5).astype(np.int32)
-    margin = np.abs(ac - np.floor(ac) - 0.5)
-    # the device computes exp(0.1*(dev_lnr - dev_lng)) with no further
-    # scaling: the gain is folded into dev_lnr (sentinel rows skip the
-    # fold, but exp(~-100) rounds to 0 under either convention)
-    a_dev = np.exp(0.1 * (dev_lnr[:, None].astype(np.float64)
-                          - dev_lng[None, :].astype(np.float64)))
-    acd = np.clip(a_dev, 0.0, 255.0)
-    cand_dev = np.floor(acd + 0.5).astype(np.int32)
-    margin_dev = np.abs(acd - np.floor(acd) - 0.5)
-    bad = ((cand != tab.astype(np.int32)) | (margin < SYNF_MARGIN)
-           | (cand_dev != tab.astype(np.int32)) | (margin_dev < SYNF_MARGIN))
-    if guard_b2:
-        bad[:, 0] = False  # kernel's b2==0 guard forces 0 exactly
-    ids = np.nonzero(bad.reshape(-1))[0]
-    if ids.size > _SYNF_AMB_PAD:
-        raise ValueError(
-            f"synRGB formula correction set too large ({ids.size} > "
-            f"{_SYNF_AMB_PAD}); table does not fit the formulaic kernel")
-    amb_id = np.full((_SYNF_AMB_PAD, 1), -1.0, np.float32)
-    amb_val = np.zeros((1, _SYNF_AMB_PAD), np.float32)
-    amb_id[: ids.size, 0] = ids.astype(np.float32)
-    amb_val[0, : ids.size] = tab.reshape(-1)[ids].astype(np.float32)
-    return tr, tg, amb_id, amb_val
-
-
-# The cached tables are HOST numpy arrays on purpose: these builders can be
-# first called while tracing (fused pipelines under jit / shard_map), where
-# jnp.asarray would capture per-trace tracers in the cache and leak them
-# into later traces. numpy constants embed safely into any trace.
-@functools.lru_cache(maxsize=1)
-def default_formula_tables():
-    """Formula tables (host numpy) for the default mode (None if the
-    correction list overflows the kernel's capacity — callers fall back to
-    the table kernel)."""
-    lut_r, lut_g, lut_b = default_luts()
-    try:
-        return formula_tables(lut_r, lut_g, lut_b, 0.0, 0.24, guard_b2=True)
-    except ValueError:
-        return None
-
-
-@functools.lru_cache(maxsize=1)
-def suppressed_formula_tables_stacked():
-    """Formula tables (host numpy) for every reachable suppressed floor
-    (3..40), stacked on a leading axis for in-graph selection by
-    `floor - 3`. None if any floor's correction list overflows the kernel
-    capacity."""
-    try:
-        parts = [formula_tables(*suppressed_luts(fc), EPS_SUPP,
-                                BLUE_SCALE_SUPP, guard_b2=False)
-                 for fc in range(3, 41)]
-    except ValueError:
-        return None
-    return tuple(np.stack([p[i] for p in parts]) for i in range(4))
-
-
-@functools.lru_cache(maxsize=64)
-def suppressed_formula_tables(floor_with_cushion: int):
-    """Formula tables (host numpy) for one concrete suppressed floor."""
-    stacked = suppressed_formula_tables_stacked()
-    if stacked is None:
-        return None
-    idx = min(max(floor_with_cushion, 3), 40) - 3
-    return tuple(a[idx] for a in stacked)
-
-
 def _apply_luts(band1, band2, lut_r, lut_g, lut_b):
-    # deliberately NOT jitted: with concrete inputs the lookup dispatcher
-    # chunks huge rasters into separate kernel dispatches (the TPU compiler
-    # cannot handle many synRGB kernels — or one giant gather — per program)
     from ..ops import synrgb_lookup
 
     rgb = synrgb_lookup(band1.ravel(), band2.ravel(), jnp.asarray(lut_r),
@@ -213,19 +75,9 @@ def _apply_luts(band1, band2, lut_r, lut_g, lut_b):
 def create_synthetic_rgb(band1, band2) -> jax.Array:
     """Default synRGB (reference: synthetic_rgb.rs:10-67). Inputs u8 arrays
     of identical shape; returns (..., 3) u8."""
-    from ..ops import synrgb_lookup_formula
-    from ..ops.kernels import use_pallas
-
-    b1 = jnp.asarray(band1)
-    b2 = jnp.asarray(band2)
-    tabs = default_formula_tables() if use_pallas() else None
-    if tabs is not None:
-        rgb = synrgb_lookup_formula(b1.ravel(), b2.ravel(), *tabs,
-                                    guard_b2=True)
-        return rgb.reshape(b1.shape + (3,))
     lut_r, lut_g, lut_b = default_luts()
     return _apply_luts(
-        b1, b2,
+        jnp.asarray(band1), jnp.asarray(band2),
         jnp.asarray(lut_r), jnp.asarray(lut_g), jnp.asarray(lut_b),
     )
 
@@ -234,10 +86,7 @@ def create_synthetic_rgb(band1, band2) -> jax.Array:
 def _combined_hist_256(band1, band2):
     from ..ops import histogram
 
-    both = jnp.concatenate(
-        [band1.astype(jnp.int32).ravel(), band2.astype(jnp.int32).ravel()]
-    )
-    return histogram(both, 256)
+    return histogram(band1, 256) + histogram(band2, 256)
 
 
 def _suppressed_floor(band1, band2) -> int:
@@ -284,17 +133,7 @@ def _water_mask(band1, band2, rgb, floor_c):
 
 
 def _apply_suppressed(band1, band2, lut_r, lut_g, lut_b, floor_c):
-    from ..ops import synrgb_lookup_formula
-    from ..ops.kernels import use_pallas
-
-    tabs = suppressed_formula_tables(int(floor_c)) if use_pallas() else None
-    if tabs is not None:
-        b1 = jnp.asarray(band1)
-        rgb = synrgb_lookup_formula(
-            b1.ravel(), jnp.asarray(band2).ravel(), *tabs, guard_b2=False,
-        ).reshape(b1.shape + (3,))
-    else:
-        rgb = _apply_luts(band1, band2, lut_r, lut_g, lut_b)
+    rgb = _apply_luts(band1, band2, lut_r, lut_g, lut_b)
     return _water_mask(jnp.asarray(band1), jnp.asarray(band2), rgb, floor_c)
 
 

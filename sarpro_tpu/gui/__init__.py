@@ -1,8 +1,8 @@
-"""SARPRO-TPU GUI — web equivalent of the reference's egui desktop app
+"""SARPRO GUI — web equivalent of the reference's egui desktop app
 (reference: src/gui/, src/bin/gui.rs).
 
-The reference ships a native eframe/egui window; a TPU host is typically a
-headless VM, so the equivalent surface here is a self-contained local web UI
+The reference ships a native eframe/egui window; a GPU host is typically a
+headless machine, so the equivalent surface here is a self-contained local web UI
 (stdlib http.server, zero extra dependencies): same state model, controls
 for every processing enum, single/batch modes, a background processing
 thread with completion signalling, a live log panel with level filtering and

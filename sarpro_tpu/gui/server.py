@@ -1,4 +1,4 @@
-"""Local web server for the SARPRO-TPU GUI (stdlib http.server, no deps).
+"""Local web server for the SARPRO GUI (stdlib http.server, no deps).
 
 Endpoints:
   GET  /                 — the single-page UI

@@ -2289,7 +2289,7 @@ class ThinPlateSpline2D:
 
     Fit is host f64 (N ≈ a few hundred GCPs → small dense solve); evaluation
     coefficients are exported for the on-device warp kernel, where the RBF
-    sum is a (pixels × N) matmul on the MXU.
+    sum is a (pixels × N) matrix product.
     """
 
     def __init__(self, src: np.ndarray, dst: np.ndarray, reg: float = 0.0):

@@ -1,8 +1,8 @@
-"""On-device reprojection — the TPU-native replacement for `gdalwarp`.
+"""On-device reprojection — the accelerator replacement for `gdalwarp`.
 
 The reference shells out to gdalwarp to reproject Sentinel-1 GRD rasters
 (src/io/sentinel1.rs:988-1071: `-of VRT -r {near,bilinear,cubic} -tps` with
-GCPs when the raster is unprojected). Here the warp is decomposed TPU-first:
+GCPs when the raster is unprojected). Here the warp is decomposed device-first:
 
   host (f64, tiny):
     1. build the source→lon/lat mapping (affine+projection, or a thin-plate
@@ -416,7 +416,7 @@ def two_stage_plan(plan: WarpPlan, src_cols: int, src_rows: int):
     from source pixels into intermediate pixels (pixel-center convention:
     centers map by the size ratio). Pre-downsampling anti-aliases (gdalwarp's
     `-ts` path samples full-res and aliases) and shrinks the sampling working
-    set ahead of the tiled warp kernel."""
+    set ahead of the sampler."""
     # nan-aware: proj_pipe targets can leave out-of-domain grid nodes nan
     with np.errstate(invalid="ignore"):
         sx_est = ((np.nanmax(plan.map_x) - np.nanmin(plan.map_x) + 1)
@@ -457,7 +457,7 @@ def warp_to_crs(reader, target_crs: str, resample_alg: Optional[str] = None,
     # pre-reduce runs ON THE HOST through the reader's native single-pass
     # box reducer (read_band_resampled, the same windows the device resampler
     # builds) — the source bytes are touched once from disk and only the
-    # ~1.25x-output intermediate ships to HBM, instead of materializing and
+    # ~1.25x-output intermediate ships to the device, instead of materializing and
     # transferring the full-resolution f32 raster (3.2 GB for a 400 MP pair).
     # This makes the with-warp read stage cost what the no-warp
     # downsample-on-read stage costs (the reference pays a full gdalwarp VRT
@@ -484,23 +484,6 @@ def warp_to_crs(reader, target_crs: str, resample_alg: Optional[str] = None,
 
         data = warp_sample_sharded(src, map_x, map_y, out_rows, out_cols,
                                    method, mesh)
-        if data is not None:
-            projection = (geodesy.epsg_to_wkt(plan.dst_epsg)
-                          or f"EPSG:{plan.dst_epsg}")
-            return WarpResult(data=data, geotransform=gt,
-                              projection=projection, epsg=plan.dst_epsg)
-    try:
-        from ..ops.kernels import use_pallas
-        from ..ops.warp_kernel import warp_sample_tiled
-
-        if use_pallas():
-            data = warp_sample_tiled(src, map_x, map_y, out_rows, out_cols,
-                                     method)
-            if data is not None:
-                logger.info("Warp: tiled Pallas sampler")
-    except Exception as e:  # noqa: BLE001 — kernel preconditions/compile
-        logger.warning("Tiled warp unavailable (%s); using XLA sampler", e)
-        data = None
     if data is None:
         data = _warp_sample(
             src,

@@ -1,27 +1,8 @@
-"""Pallas TPU kernels for the hot ops XLA lowers poorly.
-
-TPU has no fast global scatter-add and its generic gather from small tables
-is slow (~34 ms per 4M-element gather measured on v5e). Both patterns
-dominate this workload (histograms; CLAHE CDF and synRGB LUT lookups), so
-they are reformulated as one-hot matmuls on the MXU:
-
-  * histogram:  idx -> (hi, lo) decomposition; counts = onehot(hi)^T @
-    onehot(lo) accumulated in int32 across grid steps (exact);
-  * tile_histogram: CLAHE per-tile counts as the natural (tile, bin)
-    outer product onehot(tile) @ onehot(bin)^T with tile-row banding —
-    4096 MACs/px vs 16512 for the generic flat-index histogram;
-  * table lookups: value = onehot(idx) @ table, with the bilinear CLAHE
-    blend folded into the weight matrix.
-
-Measured on v5e: 4M-pixel 4096-bin histogram ~3.5 ms vs ~27 ms scatter;
-CLAHE apply ~6 ms vs ~137 ms via jnp.take.
-"""
+"""Device operations of the per-pixel chain: histograms and CLAHE/synRGB
+table lookups (plain XLA)."""
 from .kernels import (  # noqa: F401
     clahe_lookup,
     histogram,
-    pallas_interpret,
     synrgb_lookup,
-    synrgb_lookup_formula,
     tile_histogram,
-    use_pallas,
 )

@@ -1,18 +1,10 @@
-"""One-hot MXU kernels: histograms and small-table lookups (see __init__).
+"""Histograms and small-table lookups of the per-pixel chain, in plain XLA.
 
-Layout note (round 2): element streams enter as flat (1, N) ROWS and each
-grid step takes a contiguous (1, K) lane-block — elements live in the lane
-dimension, one-hots are built by sublane-broadcast compares against a
-dim-0 iota, and the MXU contraction runs over the lane dim:
-(M, K)·(N, K)ᵀ → (M, N). Round 1 used (K, 1) columns instead; those blocks
-are lane-padded 128× in VMEM/HBM-tiled layout, which dominated kernel time
-(measured 9.8×/2.4×/78× slower for CLAHE/synRGB/histogram at 4M elements)
-and capped Mosaic grids at ~2k steps. The row layout is compact end to end
-and compiles beyond 20k steps (Mosaic supports neither multiple contracting
-dims nor batched matmuls here, so the contraction stays 2D either way).
-
-Every kernel has an XLA fallback (scatter / take) used off-TPU; fallback and
-kernel agree exactly for integer tables and to f32 rounding for CDFs.
+Histograms are XLA scatter-adds (exact int32 counts; under GSPMD or
+shard_map they become per-shard partials plus a reduction). The lookups
+(CLAHE bilinear CDF blend, synRGB LUTs) are gathers that XLA fuses with
+their index arithmetic; the tables (64 KB CDFs, 64 KB blue LUT) stay
+cache-resident on the GPU.
 """
 from __future__ import annotations
 
@@ -21,284 +13,35 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-LANE = 128
-
-# GSPMD cannot partition Pallas custom calls: sharded multi-chip pipelines
-# (parallel/sharded.py) force the XLA fallbacks so histogram reductions turn
-# into per-shard partials + psum. Single-chip paths keep the kernels.
-_FORCE_XLA = False
-
-# Test-only: run every pallas_call in interpret mode (the TPU Pallas
-# interpreter executes kernel bodies — SMEM/VMEM refs, DMA copies,
-# semaphores, grids — as JAX ops on the current backend). This lets the
-# ACTUAL kernel bodies be exercised off-silicon: tests/test_pallas_interpret.py
-# compares them against the XLA fallbacks on the CPU backend, so a kernel
-# logic bug is caught without TPU hardware (on-silicon bit-exactness stays
-# covered by benchmarks/tpu_validate.py).
-_INTERPRET = False
-
-
-class force_xla_fallbacks:
-    """Context manager: route kernel dispatch to the XLA fallbacks."""
-
-    def __enter__(self):
-        global _FORCE_XLA
-        self._prev = _FORCE_XLA
-        _FORCE_XLA = True
-        return self
-
-    def __exit__(self, *exc):
-        global _FORCE_XLA
-        _FORCE_XLA = self._prev
-        return False
-
-
-class pallas_interpret:
-    """Context manager (test-only): route kernel dispatch to the Pallas
-    kernels in interpret mode on any backend. The flag is read at trace
-    time by jitted wrappers, so the jit caches are cleared on enter AND
-    exit — a traced program must not outlive the mode it was traced in."""
-
-    def __enter__(self):
-        global _INTERPRET
-        self._prev = _INTERPRET
-        _INTERPRET = True
-        jax.clear_caches()
-        return self
-
-    def __exit__(self, *exc):
-        global _INTERPRET
-        _INTERPRET = self._prev
-        jax.clear_caches()
-        return False
-
-
-def interpret_mode() -> bool:
-    """Whether pallas_call sites should pass interpret=True (trace-time)."""
-    return _INTERPRET
-
-
-def use_pallas() -> bool:
-    return not _FORCE_XLA and (_INTERPRET
-                               or jax.default_backend() == "tpu")
-
-
-def _pad_row(x, k: int, fill):
-    """Flat (1, N) row padded up to a multiple of k; (1, K) lane-blocks of it
-    are contiguous and unpadded in VMEM."""
-    n = x.size
-    g = -(-n // k)
-    pad = g * k - n
-    flat = x.reshape(-1)
-    if pad:
-        flat = jnp.concatenate([flat, jnp.full((pad,), fill, x.dtype)])
-    return flat.reshape(1, g * k), g
 
 
 # ---------------------------------------------------------------------------
 # Histogram
 # ---------------------------------------------------------------------------
-_HIST_K = 16384
-
-
-def _hist_kernel(h: int, num_bins: int, idx_ref, out_ref):
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    row = idx_ref[:]  # (1, K) i32; masked elements carry an overflow index
-    # Masked elements (idx >= num_bins) are dropped on the LO side: their
-    # lo index is forced to LANE, which matches none of the 128 iota rows,
-    # so their one-hot column is all-zero. Absorbing them in an extra HI
-    # band instead (the previous form) made M = num_bins/128 + 1 = 129 for
-    # the 16384-bin dB histogram — one row past the systolic array's 128,
-    # doubling the M-tile passes of every K-step of the contraction.
-    valid = row < num_bins
-    hi = (jnp.minimum(row // LANE, h - 1)
-          == jax.lax.broadcasted_iota(jnp.int32, (h, _HIST_K), 0))
-    lo = (jnp.where(valid, row % LANE, LANE)
-          == jax.lax.broadcasted_iota(jnp.int32, (LANE, _HIST_K), 0))
-    part = jax.lax.dot_general(
-        hi.astype(jnp.bfloat16), lo.astype(jnp.bfloat16),
-        (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
-    )
-    out_ref[:] += part.astype(jnp.int32)
-
-
 @functools.partial(jax.jit, static_argnames=("num_bins",))
-def _histogram_pallas(idx, num_bins: int):
-    h = num_bins // LANE
-    idx2, g = _pad_row(idx.astype(jnp.int32), _HIST_K, num_bins)
-    out = pl.pallas_call(
-        functools.partial(_hist_kernel, h, num_bins),
-        grid=(g,),
-        in_specs=[pl.BlockSpec((1, _HIST_K), lambda i: (0, i),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((h, LANE), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((h, LANE), jnp.int32),
-        interpret=interpret_mode(),
-    )(idx2)
-    return out.reshape(-1)
-
-
-@functools.partial(jax.jit, static_argnames=("num_bins",))
-def _histogram_xla(idx, num_bins: int):
-    idx = idx.reshape(-1)
-    valid = idx < num_bins
+def histogram(idx, num_bins: int):
+    """Counts of idx values in [0, num_bins) as int32 (num_bins,); other
+    values (the mask convention is idx == num_bins) are not counted.
+    `idx` is an integer array of any shape."""
+    if not jnp.issubdtype(idx.dtype, jnp.integer):
+        raise TypeError(f"histogram needs integer input, got {idx.dtype}")
+    idx = idx.reshape(-1).astype(jnp.int32)
+    valid = (idx >= 0) & (idx < num_bins)
     safe = jnp.where(valid, idx, 0)
     return jnp.zeros((num_bins,), jnp.int32).at[safe].add(valid.astype(jnp.int32))
-
-
-# Round 1's (K,1) column layout crashed Mosaic above ~2048 grid steps; the
-# row layout compiles and runs fine at 20k+ steps (probed at 160M elements).
-# Chunk boundaries are kept as a safety backstop well above every measured
-# configuration (full-res 400 MP single-band = 24k steps).
-_MAX_ELEMS = 256 << 20         # histogram (K=16384 -> 16384 steps)
-_MAX_LOOKUP_ELEMS = 128 << 20  # lookups (K=8192 -> 16384 steps)
-
-
-def histogram(idx, num_bins: int):
-    """Counts of idx values in [0, num_bins); entries >= num_bins (the mask
-    convention) are ignored. num_bins must be a multiple of 128."""
-    assert num_bins % LANE == 0, num_bins
-    if not use_pallas():
-        return _histogram_xla(idx, num_bins)
-    flat = idx.reshape(-1)
-    n = flat.size
-    if n <= _MAX_ELEMS:
-        return _histogram_pallas(flat, num_bins)
-    out = None
-    for start in range(0, n, _MAX_ELEMS):
-        part = _histogram_pallas(flat[start:start + _MAX_ELEMS], num_bins)
-        out = part if out is None else out + part
-    return out
 
 
 # ---------------------------------------------------------------------------
 # CLAHE tile histograms
 # ---------------------------------------------------------------------------
-# The generic `histogram` over the flat (tile*256 + bin) index pays
-# (n_tiles*n_bins) MACs/pixel on the MXU (hi/lo split: 129x128 = 16512 for
-# the 64-tile 256-bin grid — 0.85 ms/4M measured). Factoring the index into
-# its natural (tile, bin) pair turns the histogram into an outer-product
-# contraction (tiles, K)·(bins, K)ᵀ — and tile-row banding (same argument
-# as the lookup kernel below, but only 2 tile-rows since no +1 bilinear
-# neighbor) cuts the tile side to band_ty*tiles_x = 16 rows: 16*256 = 4096
-# MACs/pixel, 4x fewer. A further (round-4) factoring moves the bin's hi
-# part onto the tile rows — (32, K)x(K, 128) — which doubles the matmul's
-# M toward the 128-row systolic array and fills all 128 lanes: same MACs,
-# ~2x measured (the 16-row form ran at 16/128 of MXU peak). Masked pixels
-# carry bin == n_bins (all-zero one-hot column). Counts accumulate in
-# int32 across grid steps like `histogram`.
-_TILEHIST_K = 8192
-
-
-def _tile_hist_kernel(tiles_x: int, tiles_y: int, tile_h: int, tile_w: int,
-                      n_bins: int, cols: int, band_ty: int,
-                      base_ref, off_ref, bin_ref, out_ref):
-    k = _TILEHIST_K
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    gb = base_ref[i % 8, 0]
-    off = off_ref[0, 0]
-    flat = gb * k + jax.lax.broadcasted_iota(jnp.int32, (1, k), 1)
-    r = flat // cols + off
-    c = flat % cols
-    ty = jnp.minimum(r // tile_h, tiles_y - 1)
-    tx = jnp.minimum(c // tile_w, tiles_x - 1)
-    if band_ty < tiles_y:
-        # one block spans <= tile_h raster rows (host guard), so ty takes at
-        # most 2 consecutive values anchored by the block's FIRST row; the
-        # bottom clamp keeps clipped anchors consistent with the min() above
-        a = jnp.clip((gb * k // cols + off) // tile_h, 0, tiles_y - band_ty)
-        start = pl.multiple_of(a * tiles_x, tiles_x)
-        ty = ty - a
-        n_rows = band_ty * tiles_x
-    else:
-        start = 0
-        n_rows = tiles_y * tiles_x
-    tid = ty * tiles_x + tx  # (1, K)
-    # (tile, bin) factors further into ((tile, bin_hi), bin_lo): the bin's
-    # hi part rides the TILE one-hot rows and only the 128 lo values span
-    # the lanes. MACs/px stay n_rows*n_bins, but the matmul shape goes
-    # (16, K)x(K, 256) -> (32, K)x(K, 128): M doubles toward the systolic
-    # array's 128 rows and N becomes the full lane width — measured 2x on
-    # v5e (the 16-row form ran at 16/128 of MXU peak). Masked pixels
-    # (bin == n_bins) would alias the next tile's hi=0 row, so they get
-    # row -1 (an all-zero one-hot column, the old behavior).
-    nh = n_bins // LANE
-    bin_v = bin_ref[:]
-    row_id = jnp.where(bin_v < n_bins, tid * nh + bin_v // LANE, -1)
-    oh_t = (row_id == jax.lax.broadcasted_iota(jnp.int32, (n_rows * nh, k), 0)
-            ).astype(jnp.bfloat16)
-    oh_b = ((bin_v % LANE)
-            == jax.lax.broadcasted_iota(jnp.int32, (LANE, k), 0)
-            ).astype(jnp.bfloat16)
-    part = jax.lax.dot_general(  # (n_rows*nh, LANE)
-        oh_t, oh_b, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    if band_ty < tiles_y:
-        out_ref[pl.ds(start * nh, n_rows * nh), :] += part.astype(jnp.int32)
-    else:
-        out_ref[:] += part.astype(jnp.int32)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("cols", "tiles_x", "tiles_y", "tile_h", "tile_w",
-                     "n_bins", "block_base"))
-def _tile_histogram_pallas_chunk(bin_flat, cols, tiles_x, tiles_y, tile_h,
-                                 tile_w, n_bins: int, block_base: int,
-                                 row_offset=None):
-    b2, g = _pad_row(bin_flat.astype(jnp.int32), _TILEHIST_K, n_bins)
-    base = (jnp.arange(-(-g // 8) * 8, dtype=jnp.int32) + block_base
-            ).reshape(-1, 1)
-    off = jnp.full((1, 1), 0, jnp.int32) if row_offset is None else \
-        jnp.asarray(row_offset, jnp.int32).reshape(1, 1)
-    n_tiles = tiles_y * tiles_x
-    # banding is sound when one K-block spans at most tile_h raster rows;
-    # the accumulate's dynamic row start must be 8-sublane aligned
-    band_ty = 2 if (tiles_y > 2 and tiles_x % 8 == 0
-                    and (_TILEHIST_K - 1) // cols + 2 <= tile_h) else tiles_y
-    kern = functools.partial(_tile_hist_kernel, tiles_x, tiles_y, tile_h,
-                             tile_w, n_bins, cols, band_ty)
-    out = pl.pallas_call(
-        kern,
-        grid=(g,),
-        in_specs=[
-            pl.BlockSpec((8, 1), lambda i: (i // 8, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, _TILEHIST_K), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        # (tile, bin_hi) rows x bin_lo lanes; the flat tile-major (tile,
-        # bin) order is preserved by the trailing reshape (hi*128+lo = bin)
-        out_specs=pl.BlockSpec((n_tiles * (n_bins // LANE), LANE),
-                               lambda i: (0, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_tiles * (n_bins // LANE), LANE),
-                                       jnp.int32),
-        interpret=interpret_mode(),
-    )(base, off, b2)
-    return out.reshape(-1)
-
-
 @functools.partial(
     jax.jit,
     static_argnames=("cols", "tiles_x", "tiles_y", "tile_h", "tile_w",
                      "n_bins"))
-def _tile_histogram_xla(bin_flat, cols, tiles_x, tiles_y, tile_h, tile_w,
-                        n_bins: int, row_offset=None):
+def _tile_index(bin_flat, cols, tiles_x, tiles_y, tile_h, tile_w, n_bins,
+                row_offset=None):
+    """Flat (tile * n_bins + bin) index of every pixel; masked pixels
+    (bin >= n_bins) carry the overflow index tiles * n_bins."""
     flat_idx = jnp.arange(bin_flat.size, dtype=jnp.int32)
     r = flat_idx // cols
     if row_offset is not None:
@@ -307,11 +50,8 @@ def _tile_histogram_xla(bin_flat, cols, tiles_x, tiles_y, tile_h, tile_w,
     ty = jnp.minimum(r // tile_h, tiles_y - 1)
     tx = jnp.minimum(c // tile_w, tiles_x - 1)
     n_hist = tiles_y * tiles_x * n_bins
-    valid = bin_flat < n_bins
-    flat = jnp.where(valid,
-                     (ty * tiles_x + tx) * n_bins
-                     + jnp.minimum(bin_flat, n_bins - 1), 0)
-    return jnp.zeros((n_hist,), jnp.int32).at[flat].add(valid.astype(jnp.int32))
+    return jnp.where(bin_flat < n_bins, (ty * tiles_x + tx) * n_bins + bin_flat,
+                     n_hist)
 
 
 def tile_histogram(bin_flat, cols, tiles_x, tiles_y, tile_h, tile_w,
@@ -323,210 +63,25 @@ def tile_histogram(bin_flat, cols, tiles_x, tiles_y, tile_h, tile_w,
     `row_offset` (static int or traced scalar) shifts pixel rows to global
     raster coordinates for row chunks/shards. Returns the flat
     (tiles_y*tiles_x*n_bins,) i32 counts, tile-major."""
-    assert n_bins % LANE == 0, n_bins
-    flat = bin_flat.reshape(-1)
-    if not use_pallas():
-        return _tile_histogram_xla(flat, cols, tiles_x, tiles_y, tile_h,
-                                   tile_w, n_bins, row_offset)
-    n = flat.size
-    if n <= _MAX_LOOKUP_ELEMS:
-        return _tile_histogram_pallas_chunk(flat, cols, tiles_x, tiles_y,
-                                            tile_h, tile_w, n_bins, 0,
-                                            row_offset)
-    assert _MAX_LOOKUP_ELEMS % _TILEHIST_K == 0
-    out = None
-    for s in range(0, n, _MAX_LOOKUP_ELEMS):
-        part = _tile_histogram_pallas_chunk(
-            flat[s:s + _MAX_LOOKUP_ELEMS], cols, tiles_x, tiles_y, tile_h,
-            tile_w, n_bins, s // _TILEHIST_K, row_offset)
-        out = part if out is None else out + part
-    return out
+    idx = _tile_index(jnp.asarray(bin_flat).reshape(-1).astype(jnp.int32),
+                      cols, tiles_x, tiles_y, tile_h, tile_w, n_bins,
+                      row_offset=row_offset)
+    return histogram(idx, tiles_y * tiles_x * n_bins)
 
 
 # ---------------------------------------------------------------------------
 # CLAHE bilinear CDF lookup
 # ---------------------------------------------------------------------------
-_CLAHE_K = 8192  # VMEM-bound: bf16 one-hot (128,K) + (band*group,K) f32 dot
-
-
-def _clahe_kernel(tiles_x: int, tiles_y: int, tile_h: int, tile_w: int,
-                  n_bins: int, cols: int, band_ty: int, base_ref, off_ref,
-                  bin_ref, cdtab_ref, out_ref):
-    # (r, c) are recovered from the flat pixel index — saves two stream
-    # inputs. The global block index streams through SMEM so chunked
-    # invocations (huge rasters) share one compiled kernel. `off_ref`
-    # carries a global row offset so row-sharded shards (shard_map)
-    # interpolate with their true raster coordinates.
-    #
-    # The CDF selection is ONE matmul: the table arrives with tile-row
-    # bands contiguous across (bin_hi half, bf16 plane) — row layout
-    # (tile_row, bin_hi, plane, tile_col) — so the banded window is a
-    # single dynamic slice and the dot runs at M = band_ty * nh * 2 *
-    # tiles_x (96 for the standard 8x8/256 grid). The previous form
-    # issued 2*nh separate M=24 dots (bh-major tables, hi/lo planes as
-    # two inputs), each using 24/128 of the systolic array's result
-    # rows — stacking them measured 1.42 -> 1.15 ms/4M, bit-identical.
-    k = _CLAHE_K
-    i = pl.program_id(0)
-    gb = base_ref[i % 8, 0]
-    off = off_ref[0, 0]
-    flat = gb * k + jax.lax.broadcasted_iota(jnp.int32, (1, k), 1)
-    r = flat // cols + off
-    c = flat % cols
-    rf = r.astype(jnp.float32) / np.float32(tile_h) - 0.5  # (1,K)
-    cf = c.astype(jnp.float32) / np.float32(tile_w) - 0.5
-    tyf = jnp.maximum(jnp.floor(rf), 0.0)
-    txf = jnp.maximum(jnp.floor(cf), 0.0)
-    dy = rf - tyf
-    dx = cf - txf
-    tyi = tyf.astype(jnp.int32)
-    txi = txf.astype(jnp.int32)
-    ty0 = jnp.clip(tyi, 0, tiles_y - 1)
-    tx0 = jnp.clip(txi, 0, tiles_x - 1)
-    ty1 = jnp.clip(tyi + 1, 0, tiles_y - 1)
-    tx1 = jnp.clip(txi + 1, 0, tiles_x - 1)
-
-    nh = n_bins // LANE
-    group = nh * 2 * tiles_x  # table rows per tile-row
-    if band_ty < tiles_y:
-        # tile-row banding: one block spans <= tile_h-2 raster rows (host
-        # guard), so every pixel's ty0/ty1 falls in a 3-tile-row window
-        # anchored by the block's FIRST row — the selection matmul then
-        # contracts over band_ty*group rows instead of all tiles_y*group.
-        # The band start is computed with the SAME f32 expression as the
-        # per-pixel path so an exact tile boundary can't disagree between
-        # the two.
-        r0 = gb * k // cols + off
-        rf0 = r0.astype(jnp.float32) / np.float32(tile_h) - 0.5
-        a = jnp.clip(jnp.floor(rf0).astype(jnp.int32), 0, tiles_y - band_ty)
-        start = pl.multiple_of(a * group, group)
-        ty0 = ty0 - a
-        ty1 = ty1 - a
-        n_band = band_ty
-    else:
-        start = 0
-        n_band = tiles_y
-
-    bins = bin_ref[:]  # (1,K)
-    bh = bins // LANE
-    onehot_lo = (
-        (bins % LANE) == jax.lax.broadcasted_iota(jnp.int32, (LANE, k), 0)
-    ).astype(jnp.bfloat16)
-    rows = cdtab_ref[pl.ds(start, n_band * group), :]
-    p = jax.lax.dot_general(  # (n_band*group, K)
-        rows.astype(jnp.bfloat16), onehot_lo,
-        (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-    )
-
-    # The bilinear weighting is applied FACTORED instead of via a
-    # materialized (rows, K) weight matrix: per tile-row, the two bf16
-    # planes fold and the bh halves blend by a per-pixel (bh == h) mask,
-    # then wx (tiles_x rows) multiplies tile-columns and reduces, and wy
-    # (band_ty rows) blends the tile-row sums — ~2x fewer VPU ops than a
-    # dense weight build, numerically the same sum reassociated (the CDF
-    # values are bf16-split-reconstructed to ~1e-5, far above f32
-    # reassociation noise). Collapsed corners (ty0==ty1 / tx0==tx1 at
-    # edges) still accumulate inside one factor, matching the reference's
-    # 4-term formula exactly. Invalid pixels carry bin == n_bins ->
-    # bh == nh matches no half: output 0.
-    tcol8 = jax.lax.broadcasted_iota(jnp.int32, (tiles_x, k), 0)
-    wx = (jnp.where(tcol8 == tx0, 1.0 - dx, 0.0)
-          + jnp.where(tcol8 == tx1, dx, 0.0))
-    srows = []
-    for j in range(n_band):
-        acc = jnp.zeros((tiles_x, k), jnp.float32)
-        for h in range(nh):
-            r0j = j * group + h * 2 * tiles_x
-            pt_h = p[r0j:r0j + tiles_x] + p[r0j + tiles_x:r0j + 2 * tiles_x]
-            acc = acc + pt_h * (bh == h).astype(jnp.float32)
-        srows.append(jnp.sum(wx * acc, axis=0, keepdims=True))
-    s = jnp.concatenate(srows, axis=0)  # (n_band, K)
-    trowb = jax.lax.broadcasted_iota(jnp.int32, (n_band, k), 0)
-    wy = (jnp.where(trowb == ty0, 1.0 - dy, 0.0)
-          + jnp.where(trowb == ty1, dy, 0.0))
-    out_ref[:] = jnp.sum(wy * s, axis=0, keepdims=True)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("cols", "tiles_x", "tiles_y", "tile_h", "tile_w",
-                     "block_base"))
-def _clahe_lookup_pallas_chunk(bin_idx, cdhi, cdlo, cols, tiles_x, tiles_y,
-                               tile_h, tile_w, block_base: int,
-                               row_offset=None):
-    n = bin_idx.size
-    n_tiles, n_bins = cdhi.shape
-    b2, g = _pad_row(bin_idx.astype(jnp.int32), _CLAHE_K, n_bins)
-    base = (jnp.arange(-(-g // 8) * 8, dtype=jnp.int32) + block_base
-            ).reshape(-1, 1)
-    off = jnp.full((1, 1), 0, jnp.int32) if row_offset is None else \
-        jnp.asarray(row_offset, jnp.int32).reshape(1, 1)
-    # tile-row banding is sound when one K-block spans at most tile_h-2
-    # raster rows (see the kernel comment); the dynamic-slice start must be
-    # 8-sublane aligned, hence tiles_x % 8.
-    band_ty = 3 if (tiles_y > 3 and tiles_x % 8 == 0
-                    and (_CLAHE_K - 1) // cols + 2 <= tile_h) else tiles_y
-    kern = functools.partial(_clahe_kernel, tiles_x, tiles_y, tile_h,
-                             tile_w, n_bins, cols, band_ty)
-    nh = n_bins // LANE
-    # combined row layout (tile_row, bin_hi, plane, tile_col): tile-row
-    # bands are contiguous across both bh halves and both bf16 planes, so
-    # the kernel's banded window is one dynamic slice / one matmul
-    cdtab = jnp.stack([
-        cdhi.reshape(tiles_y, tiles_x, nh, LANE).transpose(0, 2, 1, 3),
-        cdlo.reshape(tiles_y, tiles_x, nh, LANE).transpose(0, 2, 1, 3),
-    ], axis=2).reshape(tiles_y * nh * 2 * tiles_x, LANE)
-    out = pl.pallas_call(
-        kern,
-        grid=(g,),
-        in_specs=[
-            pl.BlockSpec((8, 1), lambda i: (i // 8, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, _CLAHE_K), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tiles_y * nh * 2 * tiles_x, LANE),
-                         lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, _CLAHE_K), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, g * _CLAHE_K), jnp.float32),
-        interpret=interpret_mode(),
-    )(base, off, b2, cdtab)
-    return out.reshape(-1)[:n]
-
-
-def _clahe_lookup_pallas(bin_idx, cdfs, cols, tiles_x, tiles_y, tile_h,
-                         tile_w, row_offset=None):
-    # hi/lo bf16 split of the f32 CDFs; the barrier stops XLA from folding
-    # convert(convert(x)) back to x, which would zero the lo plane. The
-    # planes are STORED f32 (bf16-rounded values) so the banded kernel can
-    # dynamic-slice them on 8-sublane f32 tiling; the kernel casts back to
-    # bf16 exactly.
-    cdfs = jnp.asarray(cdfs, jnp.float32)
-    cdhi = jax.lax.optimization_barrier(
-        cdfs.astype(jnp.bfloat16)).astype(jnp.float32)
-    cdlo = jax.lax.optimization_barrier(
-        (cdfs - cdhi).astype(jnp.bfloat16)).astype(jnp.float32)
-    flat = bin_idx.reshape(-1)
-    n = flat.size
-    if n <= _MAX_LOOKUP_ELEMS:
-        return _clahe_lookup_pallas_chunk(flat, cdhi, cdlo, cols, tiles_x,
-                                          tiles_y, tile_h, tile_w, 0,
-                                          row_offset)
-    assert _MAX_LOOKUP_ELEMS % _CLAHE_K == 0
-    parts = []
-    for start in range(0, n, _MAX_LOOKUP_ELEMS):
-        parts.append(_clahe_lookup_pallas_chunk(
-            flat[start:start + _MAX_LOOKUP_ELEMS], cdhi, cdlo, cols, tiles_x,
-            tiles_y, tile_h, tile_w, start // _CLAHE_K, row_offset,
-        ))
-    return jnp.concatenate(parts)
-
-
 @functools.partial(
     jax.jit,
     static_argnames=("cols", "tiles_x", "tiles_y", "tile_h", "tile_w"))
-def _clahe_lookup_xla(bin_idx, cdfs, cols, tiles_x, tiles_y, tile_h, tile_w,
-                      row_offset=None):
+def clahe_lookup(bin_idx, cdfs, cols, tiles_x, tiles_y, tile_h, tile_w,
+                 row_offset=None):
+    """Bilinear interpolation between the 4 neighbor-tile CDFs at each
+    pixel's bin (reference: autoscale.rs:307-343). `bin_idx` is the flat
+    row-major (N,) bin array for a (N/cols, cols) image; `bin_idx == n_bins`
+    marks invalid pixels -> 0. `row_offset` (traced scalar) shifts pixel rows
+    to global raster coordinates for row-sharded shards. Returns (N,) f32."""
     flat = jnp.arange(bin_idx.size, dtype=jnp.int32)
     r = flat // cols
     if row_offset is not None:
@@ -545,244 +100,27 @@ def _clahe_lookup_xla(bin_idx, cdfs, cols, tiles_x, tiles_y, tile_h, tile_w,
     ty1 = jnp.clip(tyi + 1, 0, tiles_y - 1)
     tx1 = jnp.clip(txi + 1, 0, tiles_x - 1)
     n_tiles, n_bins = cdfs.shape
-    flat = cdfs.ravel()
+    table = cdfs.ravel()
     safe_bin = jnp.minimum(bin_idx, n_bins - 1)
     valid = bin_idx < n_bins
 
     def at(a, b):
-        return jnp.take(flat, (a * tiles_x + b) * n_bins + safe_bin)
+        return jnp.take(table, (a * tiles_x + b) * n_bins + safe_bin)
 
     top = at(ty0, tx0) * (1 - dx) + at(ty0, tx1) * dx
     bot = at(ty1, tx0) * (1 - dx) + at(ty1, tx1) * dx
     return jnp.where(valid, top * (1 - dy) + bot * dy, 0.0)
 
 
-def clahe_lookup(bin_idx, cdfs, cols, tiles_x, tiles_y, tile_h, tile_w,
-                 row_offset=None):
-    """Bilinear interpolation between the 4 neighbor-tile CDFs at each
-    pixel's bin (reference: autoscale.rs:307-343). `bin_idx` is the flat
-    row-major (N,) bin array for a (N/cols, cols) image; `bin_idx == n_bins`
-    marks invalid pixels -> 0. `row_offset` (traced scalar) shifts pixel rows
-    to global raster coordinates for row-sharded shards. Returns (N,) f32."""
-    if use_pallas():
-        return _clahe_lookup_pallas(bin_idx, cdfs, cols,
-                                    tiles_x, tiles_y, tile_h, tile_w,
-                                    row_offset)
-    return _clahe_lookup_xla(bin_idx, cdfs, cols,
-                             tiles_x, tiles_y, tile_h, tile_w, row_offset)
-
-
 # ---------------------------------------------------------------------------
 # synRGB LUT lookup (1D r/g tables + 2D blue table)
 # ---------------------------------------------------------------------------
-_SYNRGB_K = 8192
-
-
-def _synrgb_kernel(packed_ref, lutr_ref, lutg_ref, lutbt_ref, out_ref):
-    """r/g via (1,256)·(256,K) MXU one-hot selects; blue = row-select of the
-    (transposed) 2D table on the MXU then a sublane-masked reduce. u8 tables
-    are exact in bf16 (integers <= 255), so the bf16 MXU pass is bit-exact.
-    Both bands arrive packed as b1*256 + b2 in one lane-row (halves input
-    traffic)."""
-    k = _SYNRGB_K
-    packed = packed_ref[:]  # (1, K)
-    oh1 = ((packed // 256) == jax.lax.broadcasted_iota(jnp.int32, (256, k), 0)
-           ).astype(jnp.bfloat16)
-    oh2 = ((packed % 256) == jax.lax.broadcasted_iota(jnp.int32, (256, k), 0)
-           ).astype(jnp.bfloat16)
-    r = jax.lax.dot_general(  # (1, K)
-        lutr_ref[:], oh1, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    g = jax.lax.dot_general(
-        lutg_ref[:], oh2, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    rows = jax.lax.dot_general(  # (256, K): per-pixel blue row for own b1
-        lutbt_ref[:].astype(jnp.bfloat16), oh1,
-        (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-    )
-    blue = jnp.sum(rows * oh2.astype(jnp.float32), axis=0, keepdims=True)
-    out_ref[0:1, :] = r
-    out_ref[1:2, :] = g
-    out_ref[2:3, :] = blue
-
-
-# -- formulaic synRGB (no 64K blue table) -----------------------------------
-#
-# The default/suppressed blue channels are round(clip((r')/(g'))^0.1 * gain))
-# with r' = lut_r[b1] (+eps), g' = lut_g[b2] (+eps) — a smooth function of
-# values the kernel already selects. Instead of the (256,256)x(256,K) blue
-# row matmul (65536 MACs/pixel, ~2.8 ms/4Mpx at v5e bf16 peak), this kernel
-# selects ln(r'+eps) / ln(g'+eps) alongside the values and evaluates
-# exp(0.1*(lnr - lng)) on the VPU. Bit-exactness vs the reference's f32 LUT
-# pipeline is restored by a host-precomputed correction list: every (b1,b2)
-# pair whose f64 formula value sits within _SYNF_MARGIN of a rounding
-# boundary (or disagrees with the table outright) carries its exact table
-# value, matched in-kernel by packed id. The one-hot builds are factored
-# 16x16 (hi=v//16, lo=v%16): 64 compare-rows instead of 512, with exact
-# two-stage selection (stage 1 on the MXU, stage 2 a one-nonzero f32 FMA).
-# Exhaustive 256x256-domain equality vs the XLA lowering is checked by
-# benchmarks/tpu_validate.py; benchmarks/tpu_validate_results.json records
-# the commit the check last PASSED at on real hardware (bench.py re-runs
-# it whenever kernel paths change).
-_SYNF_AMB_PAD = 64  # correction-list capacity (measured sets: <=61 pairs
-# across default + all 38 suppressed floors; the id-match compare is
-# (PAD, K) VPU work per block, so the pad stays tight — table builders
-# fall back to the table kernel if a future LUT change overflows it)
-
-
-def _synrgb_formula_kernel(guard_b2: bool, packed_ref, tr_ref, tg_ref,
-                           ambid_ref, ambval_ref, out_ref):
-    k = _SYNRGB_K
-    packed = packed_ref[:]  # (1, K) i32
-    v1 = packed >> 8
-    v2 = packed & 255
-    io16 = jax.lax.broadcasted_iota(jnp.int32, (16, k), 0)
-    hi1 = ((v1 >> 4) == io16).astype(jnp.bfloat16)  # (16, K)
-    lo1 = ((v1 & 15) == io16).astype(jnp.float32)
-    hi2 = ((v2 >> 4) == io16).astype(jnp.bfloat16)
-    lo2 = ((v2 & 15) == io16).astype(jnp.float32)
-    # stage 1: ONE single-pass bf16 matmul per operand. The one-hot is
-    # exact in bf16 and every table row is bf16-rounded by construction
-    # (values are u8 ints; the f32 ln plane is pre-split into three bf16
-    # terms, rows 16:64 — core/synthetic_rgb.py formula_tables), so no
-    # HIGHEST multi-pass emulation is needed: M=64 in one MXU pass
-    # replaces the former 1 value pass + 6 HIGHEST passes at M=16.
-    m_r = jax.lax.dot_general(
-        tr_ref[:].astype(jnp.bfloat16), hi1, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    m_g = jax.lax.dot_general(
-        tg_ref[:].astype(jnp.bfloat16), hi2, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    # fold the split ln terms in f32 — (t0+t1)+t2, the exact order the
-    # table builder simulates when computing the ambiguity set
-    mr_ln = (m_r[16:32, :] + m_r[32:48, :]) + m_r[48:64, :]
-    mg_ln = (m_g[16:32, :] + m_g[32:48, :]) + m_g[48:64, :]
-    # stage 2: one-nonzero f32 FMA over the 16 lo rows — exact selection
-    r = jnp.sum(m_r[0:16, :] * lo1, axis=0, keepdims=True)
-    lnr = jnp.sum(mr_ln * lo1, axis=0, keepdims=True)
-    g = jnp.sum(m_g[0:16, :] * lo2, axis=0, keepdims=True)
-    lng = jnp.sum(mg_ln * lo2, axis=0, keepdims=True)
-    # gain is folded into the r ln plane (lnr += 10*ln(gain))
-    bf = jnp.exp((lnr - lng) * jnp.float32(0.1))
-    blue = jnp.floor(jnp.clip(bf, 0.0, 255.0) + jnp.float32(0.5))
-    # exact corrections for boundary-ambiguous pairs: match packed ids
-    # against the (A,1) id column, then select hit/value via tiny matmuls
-    match = (packed.astype(jnp.float32) == ambid_ref[:]).astype(jnp.bfloat16)
-    hit = jax.lax.dot_general(
-        jnp.ones((1, _SYNF_AMB_PAD), jnp.bfloat16), match,
-        (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-    )
-    corr = jax.lax.dot_general(
-        ambval_ref[:].astype(jnp.bfloat16), match,
-        (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-    )
-    blue = jnp.where(hit > 0.5, corr, blue)
-    if guard_b2:
-        blue = jnp.where(v2 == 0, 0.0, blue)
-    out_ref[0:1, :] = r
-    out_ref[1:2, :] = g
-    out_ref[2:3, :] = blue
-
-
-@functools.partial(jax.jit, static_argnames=("guard_b2",))
-def _synrgb_formula_pallas(b1, b2, tr, tg, amb_id, amb_val, guard_b2):
-    n = b1.size
-    packed = (b1.astype(jnp.int32).reshape(-1) * 256
-              + b2.astype(jnp.int32).reshape(-1))
-    pc, g = _pad_row(packed, _SYNRGB_K, 0)
-    out = pl.pallas_call(
-        functools.partial(_synrgb_formula_kernel, guard_b2),
-        grid=(g,),
-        in_specs=[
-            pl.BlockSpec((1, _SYNRGB_K), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((64, 16), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((64, 16), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((_SYNF_AMB_PAD, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _SYNF_AMB_PAD), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((3, _SYNRGB_K), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((3, g * _SYNRGB_K), jnp.float32),
-        interpret=interpret_mode(),
-    )(pc, tr, tg, amb_id, amb_val)
-    return out[:, :n].astype(jnp.uint8).T
-
-
-def synrgb_lookup_formula(b1, b2, tr, tg, amb_id, amb_val, guard_b2: bool):
-    """Formulaic synRGB lookup — TPU pallas only (callers gate on
-    use_pallas()). Tables come from
-    core.synthetic_rgb.formula_tables(); (N,3) u8 output like
-    synrgb_lookup."""
-    f1 = b1.reshape(-1)
-    f2 = b2.reshape(-1)
-    n = f1.size
-    if n <= _MAX_LOOKUP_ELEMS:
-        return _synrgb_formula_pallas(f1, f2, tr, tg, amb_id, amb_val,
-                                      guard_b2)
-    parts = []
-    for start in range(0, n, _MAX_LOOKUP_ELEMS):
-        parts.append(_synrgb_formula_pallas(
-            f1[start:start + _MAX_LOOKUP_ELEMS],
-            f2[start:start + _MAX_LOOKUP_ELEMS],
-            tr, tg, amb_id, amb_val, guard_b2))
-    return jnp.concatenate(parts)
-
-
 @jax.jit
-def _synrgb_lookup_pallas(b1, b2, lut_r, lut_g, lut_b):
-    n = b1.size
-    packed = (b1.astype(jnp.int32).reshape(-1) * 256
-              + b2.astype(jnp.int32).reshape(-1))
-    pc, g = _pad_row(packed, _SYNRGB_K, 0)
-    lutr = lut_r.astype(jnp.float32).reshape(1, 256)
-    lutg = lut_g.astype(jnp.float32).reshape(1, 256)
-    lutbt = lut_b.astype(jnp.float32).reshape(256, 256).T  # [b2, b1]
-    out = pl.pallas_call(
-        _synrgb_kernel,
-        grid=(g,),
-        in_specs=[
-            pl.BlockSpec((1, _SYNRGB_K), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 256), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 256), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((256, 256), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((3, _SYNRGB_K), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((3, g * _SYNRGB_K), jnp.float32),
-        interpret=interpret_mode(),
-    )(pc, lutr, lutg, lutbt)
-    return out[:, :n].astype(jnp.uint8).T
-
-
-@jax.jit
-def _synrgb_lookup_xla(b1, b2, lut_r, lut_g, lut_b):
+def synrgb_lookup(b1, b2, lut_r, lut_g, lut_b):
+    """(N,3) u8 from u8 bands + 256/256/65536 LUTs (flat N inputs)."""
     i1 = b1.astype(jnp.int32).reshape(-1)
     i2 = b2.astype(jnp.int32).reshape(-1)
     r = jnp.take(lut_r, i1)
     g = jnp.take(lut_g, i2)
     b = jnp.take(lut_b.reshape(-1), i1 * 256 + i2)
     return jnp.stack([r, g, b], axis=-1).astype(jnp.uint8)
-
-
-def synrgb_lookup(b1, b2, lut_r, lut_g, lut_b):
-    """(N,3) u8 from u8 bands + 256/256/65536 LUTs (flat N inputs)."""
-    if not use_pallas():
-        return _synrgb_lookup_xla(b1, b2, lut_r, lut_g, lut_b)
-    f1 = b1.reshape(-1)
-    f2 = b2.reshape(-1)
-    n = f1.size
-    if n <= _MAX_LOOKUP_ELEMS:
-        return _synrgb_lookup_pallas(f1, f2, lut_r, lut_g, lut_b)
-    parts = []
-    for start in range(0, n, _MAX_LOOKUP_ELEMS):
-        parts.append(_synrgb_lookup_pallas(
-            f1[start:start + _MAX_LOOKUP_ELEMS], f2[start:start + _MAX_LOOKUP_ELEMS],
-            lut_r, lut_g, lut_b,
-        ))
-    return jnp.concatenate(parts)

@@ -101,17 +101,17 @@ def process_directory_pipelined(
 
     `device_batch > 1` additionally stacks same-shape multiband-JPEG scenes
     into ONE vmapped device program (fast_path.save_multiband_batch_fast):
-    one transfer + dispatch + fetch per bucket amortizes per-scene RPC and
+    one transfer + dispatch + fetch per bucket amortizes per-scene
     dispatch overhead and raises device utilization. Buckets key on the
     exact post-read (rows, cols); staged scenes are capped at
     max(8, 2*device_batch) — mixed-shape directories evict the oldest
     partial bucket per-scene, so memory stays bounded and the device is
     never starved until end-of-input. Partial buckets at end-of-input run
-    per-scene (avoids compiling an extra batch size). Note: on TPU the
-    vmapped bucket program uses the XLA lowerings while per-scene runs the
-    Pallas kernels — both satisfy the fast-mode contract (≤1 quantization
-    bin vs exact mode), but a scene's bytes may differ by ±1 u8 step
-    depending on whether it filled a bucket.
+    per-scene (avoids compiling an extra batch size). Note: the vmapped
+    bucket program and the per-scene program are compiled separately, so
+    XLA may fuse and round them differently — both satisfy the fast-mode
+    contract (≤1 quantization bin vs exact mode), but a scene's bytes may
+    differ by ±1 u8 step depending on whether it filled a bucket.
 
     `direct_io` (default on) routes the loaders' contiguous-raster average
     reads through O_DIRECT chunked DMA (io/raster.py): a batch scan touches
@@ -207,15 +207,10 @@ def process_directory_pipelined(
 
                     from ..core import fused
 
-                    try:
-                        staged = fused.synrgb_band_stage(
-                            jnp.asarray(b1), strategy=params.autoscale,
-                            copol=True, target_size=params.size,
-                            pad=params.pad)
-                    except Exception:  # noqa: BLE001 — staging is advisory
-                        logger.exception("band_stage dispatch failed; "
-                                         "using the fused program")
-                        staged = None
+                    staged = fused.synrgb_band_stage(
+                        jnp.asarray(b1), strategy=params.autoscale,
+                        copol=True, target_size=params.size,
+                        pad=params.pad)
                 return fast_path.save_multiband_fast(
                     b1, b2, out, params.format, bit_depth, params.size,
                     reader.metadata, params.pad, params.autoscale,
@@ -329,18 +324,21 @@ def process_directory_pipelined(
                         params.size, params.pad, params.autoscale, op,
                         params.synrgb_mode, write_pool=writer_pool,
                     )
-                except Exception as e:  # noqa: BLE001 — fall back per-scene
-                    logger.warning(
-                        "device-batched dispatch failed (%s); processing "
-                        "bucket per-scene", e)
-                else:
-                    # outside the try: a write-failure abort raised by
-                    # record_write/drain_writes must propagate, not be
-                    # mistaken for a dispatch failure (which would
-                    # reprocess — and re-write — the whole bucket)
-                    for (path, *_), wfut in zip(items, futs):
-                        record_write(path, wfut)
+                except Exception as e:  # noqa: BLE001 — isolation boundary
+                    # every scene of the bucket failed with the dispatch
+                    logger.warning("Error processing a bucket of %d scenes "
+                                   "(%s): %s", len(items),
+                                   ", ".join(str(it[0]) for it in items), e)
+                    report.errors += len(items)
+                    tick()
+                    if not continue_on_error:
+                        raise
                     return
+                # outside the try: a write-failure abort raised by
+                # record_write/drain_writes must propagate as itself
+                for (path, *_), wfut in zip(items, futs):
+                    record_write(path, wfut)
+                return
             for path, b1, b2, out, meta in items:
                 try:
                     wfut = fast_path.save_multiband_fast(

@@ -9,18 +9,10 @@ part of the source from any output block (rotation, TPS), and the sampled
 source is the small side — the two-stage warp in io/warp.py pre-reduces
 strong downscales to ~1.25x the output before sampling.
 
-Two per-shard backends, mirroring the unsharded sampler selection:
-
-  * tiled Pallas kernel (ops/warp_kernel.py): the host plan's per-tile
-    scalar tables (DMA window origins + bilinear mapping coefficients) are
-    sliced into equal tile-row groups and sharded over the mesh; mapping
-    coefficients are rebased to shard-local row coordinates
-    (A' = A + C·R0, B' = B + D·R0 — exact in f64) so the kernel body is
-    unchanged;
-  * XLA gather sampler: io/warp.py's whole-output body with a global row
-    offset taken from the mesh axis index — each shard's rows are
-    BIT-IDENTICAL to the unsharded program's (integer row coords, exact
-    in f32).
+Each shard runs io/warp.py's XLA gather sampler over its block of output
+rows, with a global row offset taken from the mesh axis index — each
+shard's rows are BIT-IDENTICAL to the unsharded program's (integer row
+coords, exact in f32).
 """
 from __future__ import annotations
 
@@ -41,9 +33,6 @@ def make_row_mesh(n: int) -> Mesh:
     return make_mesh(n, shape=(1, n))
 
 
-# ---------------------------------------------------------------------------
-# XLA gather backend: whole-output body + per-shard global row offset
-# ---------------------------------------------------------------------------
 @functools.partial(
     jax.jit,
     static_argnames=("out_rows", "out_cols", "method", "block", "mesh"))
@@ -63,88 +52,6 @@ def _xla_sharded_call(src, map_x, map_y, out_rows: int, out_cols: int,
     )(src, map_x, map_y)
 
 
-# ---------------------------------------------------------------------------
-# Tiled Pallas backend: shard the per-tile scalar tables by tile-row groups
-# ---------------------------------------------------------------------------
-def _shard_tables(plan, n: int, ntx: int, nty_pad: int):
-    """Slice (oy, ox, cx, cy) into n equal tile-row groups, rebase the
-    mapping coefficients to shard-local rows, pad each group to the SMEM
-    8-row block granule, and stack for P('row') sharding."""
-    from ..ops.warp_kernel import TR
-
-    oy, ox, cxc, cyc, _nty, _ntx = plan
-    ntl = (nty_pad // n) * ntx                 # tiles per shard
-    ntl8 = -(-ntl // 8) * 8                    # SMEM 8-block padding
-    blk_rows = (nty_pad // n) * TR             # output rows per shard
-
-    def stack(a, width, rebase=False):
-        a = a.reshape(-1, width)
-        out = np.zeros((n * ntl8, width), a.dtype)
-        for i in range(n):
-            part = a[i * ntl:(i + 1) * ntl].astype(np.float64)
-            if rebase:
-                r0 = np.float64(i * blk_rows)
-                # s = A + B·c + C·r + D·r·c with r = R0 + r_local
-                part = part.copy()
-                part[:, 0] += part[:, 2] * r0
-                part[:, 1] += part[:, 3] * r0
-            out[i * ntl8:i * ntl8 + ntl] = part.astype(a.dtype)
-        return out
-
-    return (stack(oy, 1), stack(ox, 1), stack(cxc, 4, rebase=True),
-            stack(cyc, 4, rebase=True), ntl, ntl8)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("method", "ntl", "ntx", "src_h", "src_w", "nty_local",
-                     "mesh"))
-def _tiled_sharded_call(src_p, oy, ox, cx, cy, method: str, ntl: int,
-                        ntx: int, src_h: int, src_w: int, nty_local: int,
-                        mesh: Mesh):
-    from ..ops.warp_kernel import TC, TPIX, TR, tiled_flat_call
-
-    def per_device(s, a, b, c, d):
-        flat = tiled_flat_call(s, a, b, c, d, method, ntl, ntx, src_h,
-                               src_w)
-        tiles = flat.reshape(nty_local, ntx, TR, TC)
-        return tiles.transpose(0, 2, 1, 3).reshape(nty_local * TR, ntx * TC)
-
-    return jax.shard_map(
-        per_device, mesh=mesh,
-        in_specs=(P(None, None), P("row", None), P("row", None),
-                  P("row", None), P("row", None)),
-        out_specs=P("row", None), check_vma=False,
-    )(src_p, oy, ox, cx, cy)
-
-
-def _try_tiled_sharded(src, map_x, map_y, out_rows: int, out_cols: int,
-                       method: str, mesh: Mesh, n: int):
-    from ..ops.warp_kernel import TR, WIN_C, WIN_R, plan_tiled_warp
-
-    src_h, src_w = src.shape
-    # equal tile-row blocks per shard
-    nty_pad = -(-(-(-out_rows // TR)) // n) * n
-    plan = plan_tiled_warp(np.asarray(map_x, np.float64),
-                           np.asarray(map_y, np.float64),
-                           src_h, src_w, out_rows, out_cols, method,
-                           plan_rows=nty_pad * TR)
-    if plan is None:
-        return None
-    ntx = plan[5]
-    oy, ox, cxs, cys, ntl, _ntl8 = _shard_tables(plan, n, ntx, nty_pad)
-    pad_r = -(-src_h // 8) * 8 - src_h
-    pad_c = -(-src_w // 128) * 128 - src_w
-    src_p = jnp.pad(jnp.asarray(src, jnp.float32),
-                    ((0, pad_r), (0, pad_c)))
-    with mesh:
-        out = _tiled_sharded_call(
-            src_p, jnp.asarray(oy), jnp.asarray(ox), jnp.asarray(cxs),
-            jnp.asarray(cys), method, ntl, ntx, src_h, src_w,
-            nty_pad // n, mesh)
-    return out[:out_rows, :out_cols]
-
-
 def warp_sample_sharded(src, map_x: np.ndarray, map_y: np.ndarray,
                         out_rows: int, out_cols: int, method: str,
                         mesh: Mesh):
@@ -154,19 +61,7 @@ def warp_sample_sharded(src, map_x: np.ndarray, map_y: np.ndarray,
     n = mesh.shape["row"]
     if n < 2:
         return None
-    from ..ops.kernels import use_pallas
-
     src = jnp.asarray(src, jnp.float32)
-    if use_pallas():
-        try:
-            out = _try_tiled_sharded(src, map_x, map_y, out_rows, out_cols,
-                                     method, mesh, n)
-            if out is not None:
-                logger.info("Warp: tiled Pallas sampler over %d devices", n)
-                return out
-        except Exception as e:  # noqa: BLE001 — plan/compile preconditions
-            logger.warning("Sharded tiled warp unavailable (%s); using the "
-                           "sharded XLA sampler", e)
     block = -(-out_rows // n)
     with mesh:
         out = _xla_sharded_call(

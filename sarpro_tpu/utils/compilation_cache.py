@@ -1,40 +1,36 @@
 """Persistent XLA compilation cache for cold-start latency.
 
-The fused pipelines compile in ~5-40 s per (shape, strategy) configuration;
+The fused pipelines compile in seconds per (shape, strategy) configuration;
 the streamed big-scene path compiles one program per (chunk-shape, pass).
-A persistent cache makes every program after the first process a disk hit —
-the difference between a ~5 min and a ~10 s cold CLI run on huge scenes.
+A persistent cache makes every program after the first process a disk hit.
 
 Enabled by the CLI/GUI entry points; library users call
 `enable_compilation_cache()` themselves (a global jax.config mutation is
-not something a library should do on import). `SARPRO_JAX_CACHE=off`
-disables; any other value overrides the directory.
+not something a library should do on import). Where the environment sets
+`JAX_COMPILATION_CACHE_DIR`, JAX reads it on its own and this module sets
+nothing; otherwise the cache lives at a fixed path inside the checkout
+(`.jax_cache/`, gitignored) — the path is part of the cache key, so a
+directory that moved would never hit.
 """
 from __future__ import annotations
 
-import logging
 import os
+import pathlib
 
-logger = logging.getLogger("sarpro")
-
-_DEFAULT = "~/.cache/sarpro_tpu/jax"
+DEFAULT_DIR = pathlib.Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def enable_compilation_cache(path: str | None = None) -> str | None:
-    env = os.environ.get("SARPRO_JAX_CACHE")
-    if env == "off":
-        return None
-    target = os.path.expanduser(path or env or _DEFAULT)
-    try:
-        os.makedirs(target, exist_ok=True)
-        import jax
+def enable_compilation_cache() -> str:
+    """Turn the persistent cache on; returns the directory in use."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
 
-        jax.config.update("jax_compilation_cache_dir", target)
-        # cache even quick compiles: the streamed path dispatches dozens of
-        # small per-chunk programs whose compile times sit near the default
-        # 1 s threshold
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
-    except Exception as e:  # noqa: BLE001 — cache is an optimization only
-        logger.warning("compilation cache unavailable: %s", e)
-        return None
-    return target
+    DEFAULT_DIR.mkdir(parents=True, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(DEFAULT_DIR))
+    # cache even quick compiles: the streamed path dispatches several
+    # small per-pass programs whose compile times sit near the default 1 s
+    # threshold
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
+    return str(DEFAULT_DIR)

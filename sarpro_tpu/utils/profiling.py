@@ -2,7 +2,7 @@
 
 The reference's profiling is coarse wall-clock (GUI run timer app.rs:205-215,
 approximate memory logs runner.rs:132-136, sysinfo footer models.rs:436-463).
-The TPU equivalent is structured: `stage(...)` context managers record
+The equivalent here is structured: `stage(...)` context managers record
 block-until-ready wall times per pipeline stage, and `trace(...)` wraps
 jax.profiler for XLA-level traces.
 """

@@ -2,7 +2,8 @@
 
 Every function here is an independent, loop-level re-statement of the Rust
 behavior (with its exact truncating casts and half-away-from-zero rounds),
-used as golden truth for the TPU kernels. Cites are into /root/reference.
+used as golden truth for the device kernels. Cites are into the reference's
+source tree (bogwi/sarpro).
 Keep these slow-and-obvious; they only run on small test images.
 """
 from __future__ import annotations

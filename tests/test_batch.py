@@ -1,5 +1,8 @@
 """Tests: pipelined batch driver."""
+import functools
+
 import numpy as np
+import pytest
 from PIL import Image
 
 import fixtures
@@ -82,7 +85,7 @@ def test_pipelined_batch_fault_isolation(tmp_path, monkeypatch):
 
 
 def test_missing_pol_counts_as_skipped_both_paths(tmp_path):
-    """VERDICT r1 item 4: a GRD product missing VH under --polarization
+    """A GRD product missing VH under --polarization
     multiband must land in `skipped`, not `errors`, on BOTH batch paths
     (reference: api/mod.rs:502-533 warnings-mode viability)."""
     from sarpro_tpu.api import process_directory_to_path
@@ -121,7 +124,7 @@ def test_single_pol_missing_file_skipped(tmp_path):
 def test_pipelined_fast_writer_thread_matches_serial_fast(tmp_path):
     """fast=True routes scenes through the fused pipeline with the deferred
     writer thread; outputs must be byte-identical to the serial fast path
-    and counters must match (VERDICT r2 item 3)."""
+    and counters must match."""
     from sarpro_tpu import api
 
     indir = _setup(tmp_path)
@@ -190,6 +193,43 @@ def test_device_batched_buckets_match_per_scene(tmp_path):
         assert batched == single, name
         # per-scene sidecars written for batched scenes too
         assert (tmp_path / "db" / f"{name}.SAFE.json").exists()
+
+
+@pytest.mark.parametrize("continue_on_error", [True, False])
+def test_device_batched_dispatch_failure_is_an_error(tmp_path, monkeypatch,
+                                                     continue_on_error):
+    """A failed bucket dispatch counts every scene of the bucket as an
+    error (or aborts the batch) — it is never re-run another way."""
+    import sarpro_tpu.core.fast_path as fp
+
+    indir = tmp_path / "in2"
+    indir.mkdir()
+    for i, name in enumerate(("a", "b")):
+        fixtures.make_safe(indir, name=f"{name}.SAFE", seed=20 + i)
+    per_scene = []
+
+    def boom(*a, **k):
+        raise RuntimeError("synthetic dispatch failure")
+
+    monkeypatch.setattr(fp, "save_multiband_batch_fast", boom)
+    monkeypatch.setattr(fp, "save_multiband_fast",
+                        lambda *a, **k: per_scene.append(a))
+    params = ProcessingParams(
+        format=OutputFormat.JPEG, polarization=Polarization.MULTIBAND,
+        autoscale=AutoscaleStrategy.TAMED, size=32,
+    )
+    run = functools.partial(
+        process_directory_pipelined, indir, tmp_path / "out", params,
+        continue_on_error=continue_on_error, prefetch=2, fast=True,
+        device_batch=2)
+    if continue_on_error:
+        report = run()
+        assert (report.processed, report.errors) == (0, 2)
+    else:
+        with pytest.raises(RuntimeError, match="synthetic dispatch"):
+            run()
+    assert per_scene == []
+    assert not list((tmp_path / "out").glob("*.jpg"))
 
 
 def test_device_batched_partial_bucket_and_mixed_shapes(tmp_path):

@@ -1,6 +1,6 @@
 """Golden tests: CLAHE vs the direct per-pixel oracle.
 
-Note on tolerances: the reference computes in f64 end-to-end; the TPU path is
+Note on tolerances: the reference computes in f64 end-to-end; the device path is
 f32. A single f32/f64 histogram-bin flip in a small tile shifts that tile's
 whole CDF by 1/tile_pixels, so the exact-match comparison feeds the *device*
 normalized image into the oracle (stages 2-3 then see identical values and

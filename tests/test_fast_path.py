@@ -165,7 +165,7 @@ def test_overlapped_band_staging_byte_identical(safe_dir, tmp_path,
 
 def test_fast_multiband_engages_band_staging(tmp_path):
     """The file API's multiband fast path must actually dispatch band 1's
-    device program during band 2's load (VERDICT r2 item 1). The reader
+    device program during band 2's load. The reader
     hint is 'all_pairs', whose complete pairs must route through the
     overlapped load_pair — this asserts ENGAGEMENT (staged_band1 set), not
     just output equality, so the overlap cannot silently regress to

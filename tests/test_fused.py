@@ -94,7 +94,7 @@ def test_fused_downsample_on_read(rng):
 
 
 def test_fused_clahe_realistic_scale_2048(rng):
-    """VERDICT r1 item 6: at realistic tile occupancy (2048² → 256×256-pixel
+    """At realistic tile occupancy (2048² → 256×256-pixel
     CLAHE tiles, 65536 px/tile) the fused f32 path must demonstrate the
     claimed ≤1-histogram-bin window placement vs the exact f64 path — no
     tiny-tile escape hatch. One CDF step at this occupancy is ≤1/65536 of

@@ -1,6 +1,6 @@
 """National-grid CRS family: LCC 1SP/2SP, Albers, generic TM + datum shifts.
 
-VERDICT r2 items 4+8: gdalwarp accepts any PROJ-known `-t_srs`
+gdalwarp accepts any PROJ-known `-t_srs`
 (reference: src/io/sentinel1.rs:988-1003); these tests pin our
 self-contained projection math for the most common national grids against
 the system PROJ (`cs2cs`) as oracle, check WKT emission round-trips, and
@@ -189,7 +189,7 @@ def test_warp_mapping_to_national_grid(tmp_path, code, lon0, lat0):
 def test_warp_grid_pixel_error_vs_proj_oracle(tmp_path):
     """End-to-end mapping error vs PROJ for EPSG:2154: compose the oracle's
     inverse projection with the plan's TPS; the plan's source-pixel mapping
-    must agree within 0.1 px (VERDICT r2 item 4's done-criterion)."""
+    must agree within 0.1 px."""
     code, lon0, lat0 = 2154, 2.2, 48.9
     reader = _gcp_raster(tmp_path, code, lon0, lat0)
     plan = warp_mod.plan_warp(reader, f"EPSG:{code}", target_size=None)

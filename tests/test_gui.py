@@ -101,8 +101,7 @@ def test_cli_generator_defaults():
 
 
 def test_listdir_endpoint(server, tmp_path):
-    """Server-side browse dialog (the rfd file-dialog equivalent;
-    VERDICT r1 item 10)."""
+    """Server-side browse dialog (the rfd file-dialog equivalent)."""
     base = fixtures.make_safe(tmp_path, name="S1A_PICK.SAFE", pols=("vv",))
     (tmp_path / "plain_dir").mkdir()
     (tmp_path / "out.tiff").write_bytes(b"x")
@@ -137,8 +136,7 @@ def test_html_js_server_consistency():
     """Headless-CI stand-in for a browser smoke test: every element id the
     page script references must exist in the markup, every onclick handler
     must be defined, and every fetched /api route must be handled by
-    server.py (a regression in static/index.html now fails CI;
-    VERDICT r1 weak item 7)."""
+    server.py (a regression in static/index.html now fails CI)."""
     import re
     from pathlib import Path
 

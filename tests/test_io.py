@@ -279,7 +279,7 @@ def test_bigtiff_roundtrip(tmp_path, rng):
     assert r.gdal_metadata() == {"K": "V"}
 
 
-# -- foreign TIFF layout coverage: tiled / planar / predictor (VERDICT r1 #7) --
+# -- foreign TIFF layout coverage: tiled / planar / predictor ----------------
 
 def _build_tiff(path, data, *, tiled=False, tile=(16, 16), planar=1,
                 predictor=1, rows_per_strip=8, compress=True):
@@ -438,7 +438,7 @@ def test_tiff_malformed_files_raise_cleanly(tmp_path, rng):
             pass  # any exception is fine; crashes/hangs are not
 
 
-# -- Mercator family (VERDICT r1 #5) -----------------------------------------
+# -- Mercator family ----------------------------------------------------------
 
 def test_webmercator_known_values_and_roundtrip():
     # exact edge: lon 180° → π·a
@@ -491,7 +491,7 @@ def test_project_dispatch_mercators():
         geodesy.project_forward(0.0, 0.0, 999999)
 
 
-# -- streamed decimated reads (VERDICT r1 items 1-2) --------------------------
+# -- streamed decimated reads --------------------------------------------------
 
 @pytest.mark.parametrize("compression", [None, "tiff_lzw"])
 def test_streamed_average_read_matches_device(tmp_path, rng, compression):

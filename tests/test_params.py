@@ -1,4 +1,6 @@
 """Tests: ProcessingParams serde compatibility with the reference's preset format."""
+import pathlib
+
 import pytest
 
 from sarpro_tpu.params import ProcessingParams
@@ -94,14 +96,30 @@ def test_invalid_enum_rejected():
         Polarization.from_cli("xx")
 
 
-def test_compilation_cache_helper(tmp_path, monkeypatch):
-    from sarpro_tpu.utils.compilation_cache import enable_compilation_cache
-
-    target = tmp_path / "jaxcache"
-    got = enable_compilation_cache(str(target))
-    assert got == str(target) and target.is_dir()
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compilation_cache_helper(tmp_path, monkeypatch, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins and the helper sets nothing;
+    otherwise the cache goes to the fixed in-checkout directory."""
     import jax
 
-    assert jax.config.jax_compilation_cache_dir == str(target)
-    monkeypatch.setenv("SARPRO_JAX_CACHE", "off")
-    assert enable_compilation_cache() is None
+    from sarpro_tpu.utils import compilation_cache as cc
+
+    before = jax.config.jax_compilation_cache_dir
+    if env_set:
+        target = tmp_path / "envcache"
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(target))
+        assert cc.enable_compilation_cache() == str(target)
+        assert jax.config.jax_compilation_cache_dir == before
+        return
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    assert cc.DEFAULT_DIR == repo / ".jax_cache"
+    # the checkout's own cache directory is not written by the test run
+    target = tmp_path / "fixed"
+    monkeypatch.setattr(cc, "DEFAULT_DIR", target)
+    try:
+        assert cc.enable_compilation_cache() == str(target)
+        assert target.is_dir()
+        assert jax.config.jax_compilation_cache_dir == str(target)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -102,61 +102,57 @@ def test_resample_filters_smoke(rng):
             assert abs(y.mean() - x.mean()) / x.mean() < 0.05
 
 
-def test_band_plan_covers_all_taps_unaligned_input():
-    """Code-review regression: with in_size % 16 != 0, the banded resampler's
-    end-clamp could shift the DMA band start below the +16 slack and taps
-    fell off the band silently (weight loss on the bottom/right edges). The
-    plan must either place EVERY nonzero tap inside the band or refuse."""
-    from sarpro_tpu.core.resize import _build_coeffs
-    from sarpro_tpu.ops.resample_kernel import _band_plan
+def test_large_reduction_contraction_asks_for_full_f32():
+    """Past _TAP_LOOP_MAX taps the resampler contracts a gathered window
+    with one dot_general; on the GPU a default-precision f32 dot may run in
+    TF32 (~3 decimal digits), so it must ask for HIGHEST."""
+    import jax
 
-    for in_size, out_n, filt in ((16705, 2048, "average"), (1000, 100, "average"),
-                                 (16695, 2048, "lanczos"), (977, 97, "average")):
-        plan = _band_plan(in_size, out_n, filt)
-        if plan is None:
-            continue  # refusing is always safe
-        r0s, W, B, G, kb = plan
-        # kernel-covered blocks must carry every nonzero tap; blocks past
-        # kb are computed by the tap-loop instead
-        assert kb >= 1
-        starts, weights = _build_coeffs(in_size, out_n, filt)
-        for o in range(min(kb * 8, out_n)):
-            placed = W[o // 8, o % 8].sum()
-            expect = weights[o].sum()
-            assert placed == pytest.approx(expect, abs=1e-6), \
-                f"row {o} of {in_size}->{out_n} {filt}: {placed} != {expect}"
-        for i in range(kb):
-            assert r0s[i] + B <= in_size  # DMA stays inside the source
+    s, w = resize._build_coeffs(400, 20, "lanczos")
+    assert w.shape[1] > resize._TAP_LOOP_MAX
+    jaxpr = jax.make_jaxpr(resize._resample_axis0)(
+        jnp.zeros((400, 8), jnp.uint16), jnp.asarray(s), jnp.asarray(w))
+    dots = [e for e in jaxpr.jaxpr.eqns[0].params["jaxpr"].eqns
+            if e.primitive.name == "dot_general"]
+    assert dots, "large reductions contract with dot_general"
+    for e in dots:
+        prec = e.params["precision"]
+        assert prec is not None and all(
+            p == jax.lax.Precision.HIGHEST for p in prec), prec
 
 
-def test_band_plan_weight_totals_aligned():
-    from sarpro_tpu.core.resize import _build_coeffs
-    from sarpro_tpu.ops.resample_kernel import _band_plan
+@pytest.mark.parametrize("filt,in_n,out_n", [
+    ("lanczos", 4000, 205),   # 400 MP -> 1024-style reduction: 119 taps
+    ("lanczos", 1600, 160),
+    ("average", 3000, 100),
+])
+def test_large_reduction_matches_f64_oracle(rng, filt, in_n, out_n):
+    """The einsum path (lanczos 20000 -> 1024 ratio) against an f64 numpy
+    evaluation of the same normalized Pillow-convention weights."""
+    s, w = resize._build_coeffs(in_n, out_n, filt)
+    assert w.shape[1] > resize._TAP_LOOP_MAX
+    x = rng.integers(0, 65535, (in_n, 24)).astype(np.uint16)
+    got = np.asarray(resize._apply_axis0(jnp.asarray(x), filt, in_n, out_n))
+    idx = np.clip(s[:, None].astype(np.int64) + np.arange(w.shape[1]), 0,
+                  in_n - 1)
+    want = np.einsum("ok,okc->oc", w.astype(np.float64),
+                     x[idx].astype(np.float64))
+    assert got.dtype == np.float32 and got.shape == (out_n, 24)
+    # f32 accumulation of ~100 taps of u16-sized terms: relative 1e-5
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0.05)
 
-    plan = _band_plan(20000, 2048, "average")
-    assert plan is not None
-    r0s, W, B, G, kb = plan
-    # the final block's band (start slack) may poke past the source end and
-    # fall to the tap-loop; everything else must ride the kernel
-    assert kb >= G - 1
-    starts, weights = _build_coeffs(20000, 2048, "average")
-    np.testing.assert_allclose(
-        W.reshape(G * 8, B)[:kb * 8].sum(axis=1),
-        weights.sum(axis=1)[:kb * 8], atol=1e-6)
 
-
-def test_banded_kernel_declines_narrow_extreme_reduction():
-    """A 128-lane raster with an extreme reduction cannot shrink its column
-    chunk below one lane group; the banded kernel must decline (tap-loop
-    fallback) instead of blowing the VMEM scratch at compile time."""
-    from sarpro_tpu.ops import resample_kernel as rk
-
-    in_size, out_size = 40000, 10
-    x = jnp.zeros((in_size, 128), jnp.float32)
-    plan = rk._band_plan(in_size, out_size, "lanczos")
-    if plan is None:
-        pytest.skip("planner already declines this shape")
-    _, _, B, _, _ = plan
-    res = rk.band_resample_axis0(x, in_size, out_size, "lanczos")
-    if 2 * B * 128 * 4 > rk._MAX_SCRATCH_BYTES:
-        assert res is None
+@pytest.mark.gpu
+def test_large_reduction_on_card_is_full_f32(gpu, rng):
+    """On the card a TF32 contraction would miss the f64 oracle by ~1e-3;
+    the HIGHEST einsum must hold the f32 tolerance."""
+    in_n, out_n = 4000, 205
+    s, w = resize._build_coeffs(in_n, out_n, "lanczos")
+    x = rng.integers(0, 65535, (in_n, 256)).astype(np.uint16)
+    got = np.asarray(resize._apply_axis0(jnp.asarray(x), "lanczos", in_n,
+                                         out_n))
+    idx = np.clip(s[:, None].astype(np.int64) + np.arange(w.shape[1]), 0,
+                  in_n - 1)
+    want = np.einsum("ok,okc->oc", w.astype(np.float64),
+                     x[idx].astype(np.float64))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0.05)

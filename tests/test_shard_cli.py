@@ -31,7 +31,7 @@ def safe_dir(tmp_path_factory):
 
 
 def test_shard_multiband_tiff_fullres_exact(safe_dir, tmp_path):
-    """Full-res multiband TIFF (shard_map branch, Pallas kernels + psum):
+    """Full-res multiband TIFF (shard_map branch, per-shard histograms + psum):
     byte-identical bands vs the unsharded fast path."""
     params = ProcessingParams(
         format=OutputFormat.TIFF, bit_depth=BitDepthArg.U16,

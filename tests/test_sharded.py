@@ -1,6 +1,6 @@
 """Multi-device tests on the 8-way virtual CPU mesh (SURVEY.md §4 item 3).
 
-VERDICT r2 item 6: every scene in the batch is compared (not just scene 0),
+Every scene in the batch is compared (not just scene 0),
 and equality is exact for strategies whose sharded reductions are integer
 (histograms/min/max psum exactly; only ADAPTIVE consumes the float-ordered
 mean/std sums, so only it gets a tolerance).
@@ -73,7 +73,7 @@ def test_sharded_grayscale_batch(rng, mesh):
 
 def test_sharded_adaptive_bit_identical(rng, mesh):
     """ADAPTIVE's mean/std derive from the psum'd integer histogram, so the
-    sharded program matches the unsharded one exactly (VERDICT r4 item 7)."""
+    sharded program matches the unsharded one exactly."""
     n_scene = mesh.shape["scene"]
     rows = 32 * mesh.shape["row"]
     dn = np.stack([sar_like(rng, (rows, 64)) for _ in range(n_scene)])
@@ -89,8 +89,7 @@ def test_sharded_adaptive_bit_identical(rng, mesh):
 
 def test_gspmd_fallback_resample_pad_matches_unsharded(rng, mesh):
     """The GSPMD fallback branch (_synrgb_batch_jit: target_size + pad) must
-    reproduce the unsharded program on every scene (VERDICT r2 item 6 —
-    previously untested)."""
+    reproduce the unsharded program on every scene."""
     n_scene = mesh.shape["scene"]
     rows = 48 * mesh.shape["row"]
     vv = np.stack([sar_like(rng, (rows, 144)) for _ in range(n_scene)])
@@ -100,14 +99,11 @@ def test_gspmd_fallback_resample_pad_matches_unsharded(rng, mesh):
         pad=True,
     ))
     assert out.shape == (n_scene, 96, 96, 3)
-    from sarpro_tpu.ops.kernels import force_xla_fallbacks
 
     def want(i):
-        # the fallback path traces with XLA kernels; compare like-for-like
-        with force_xla_fallbacks():
-            return fused.synrgb_pipeline(
-                vv[i], vh[i], strategy=AutoscaleStrategy.CLAHE,
-                target_size=96, pad=True)
+        return fused.synrgb_pipeline(
+            vv[i], vh[i], strategy=AutoscaleStrategy.CLAHE,
+            target_size=96, pad=True)
 
     _assert_scenes_match(out, want, exact=True, label="gspmd-pad")
 
@@ -121,13 +117,11 @@ def test_gspmd_fallback_grayscale_target_size(rng, mesh):
         target_size=64, pad=True,
     ))
     assert out.shape == (n_scene, 64, 64)
-    from sarpro_tpu.ops.kernels import force_xla_fallbacks
 
     def want(i):
-        with force_xla_fallbacks():
-            return fused.grayscale_pipeline(
-                dn[i], strategy=AutoscaleStrategy.STANDARD,
-                bit_depth=BitDepth.U8, target_size=64, pad=True)
+        return fused.grayscale_pipeline(
+            dn[i], strategy=AutoscaleStrategy.STANDARD,
+            bit_depth=BitDepth.U8, target_size=64, pad=True)
 
     _assert_scenes_match(out, want, exact=True, label="gspmd-gray")
 
@@ -148,7 +142,7 @@ def test_graft_entry_contract():
 
 
 def test_shardmap_clahe_tile_straddles_shard_boundary(rng, mesh):
-    """Row shards that cut through CLAHE tile rows (VERDICT r1 item 3): the
+    """Row shards that cut through CLAHE tile rows: the
     psum-combined tile histograms and the global-row-offset bilinear apply
     must agree with the unsharded program even when a shard boundary lands
     mid-tile (here rows=328, tile_h=41, 4-way row axis → boundary at 82)."""

@@ -85,7 +85,7 @@ def test_sharded_streamed_grayscale_bit_identical(rng, mesh, bit_depth):
 def test_sharded_streamed_adaptive_bit_identical(rng, mesh):
     """Adaptive's mean/std derive from the psum'd integer histogram
     (fused._stats_finalize), so the sharded scan is byte-identical to the
-    unsharded one — the last strategy asterisk (VERDICT r4 item 7)."""
+    unsharded one — the last strategy asterisk."""
     dn = sar_like(rng, (416, 176))
     want = np.asarray(streamed.grayscale_streamed(
         dn, strategy=AutoscaleStrategy.ADAPTIVE, chunk_rows=24))

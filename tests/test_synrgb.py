@@ -74,65 +74,3 @@ def test_mode_dispatch(rng):
         )
     )
     np.testing.assert_array_equal(got, default)
-
-
-def test_formula_tables_structure():
-    """Host formula tables: packing layout round-trips to the LUTs and the
-    correction sets fit the kernel capacity for every reachable floor."""
-    from sarpro_tpu.ops.kernels import _SYNF_AMB_PAD
-
-    sets = [(srgb.default_luts(), 0.0, 0.24, True)]
-    sets += [(srgb.suppressed_luts(fc), srgb.EPS_SUPP, srgb.BLUE_SCALE_SUPP,
-              False) for fc in range(3, 41)]
-    for (lut_r, lut_g, lut_b), eps, gain, guard in sets:
-        tr, tg, amb_id, amb_val = srgb.formula_tables(
-            lut_r, lut_g, lut_b, eps, gain, guard)
-        # rows 0:16 of tr/tg hold the value planes in [lo, hi] order
-        vals_r = tr[0:16].T.reshape(-1)
-        vals_g = tg[0:16].T.reshape(-1)
-        np.testing.assert_array_equal(vals_r, np.asarray(lut_r, np.float32))
-        np.testing.assert_array_equal(vals_g, np.asarray(lut_g, np.float32))
-        n_amb = int((amb_id >= 0).sum())
-        assert n_amb <= _SYNF_AMB_PAD
-        # correction values carry the exact table entries
-        ids = amb_id[amb_id >= 0].astype(np.int64)
-        np.testing.assert_array_equal(
-            amb_val[0, :n_amb],
-            np.asarray(lut_b, np.uint8).reshape(-1)[ids].astype(np.float32))
-
-
-def test_formula_f32_simulation_bit_exact():
-    """Simulate the kernel's f32 ln/exp blue formula on the host (numpy f32,
-    error well inside SYNF_MARGIN) + corrections: must reproduce every
-    table entry for default and all suppressed floors."""
-    sets = [(srgb.default_luts(), 0.0, 0.24, True)]
-    sets += [(srgb.suppressed_luts(fc), srgb.EPS_SUPP, srgb.BLUE_SCALE_SUPP,
-              False) for fc in range(3, 41)]
-    for (lut_r, lut_g, lut_b), eps, gain, guard in sets:
-        tr, tg, amb_id, amb_val = srgb.formula_tables(
-            lut_r, lut_g, lut_b, eps, gain, guard)
-        # fold the three bf16 split terms exactly as the kernel does
-        lnr = ((tr[16:32] + tr[32:48]) + tr[48:64]).T.reshape(-1)  # gain folded
-        lng = ((tg[16:32] + tg[32:48]) + tg[48:64]).T.reshape(-1)
-        d = (lnr[:, None] - lng[None, :]).astype(np.float32)
-        bf = np.exp(np.float32(0.1) * d).astype(np.float32)
-        blue = np.floor(np.clip(bf, 0.0, 255.0) + np.float32(0.5))
-        ids = amb_id[amb_id >= 0].astype(np.int64)
-        n_amb = ids.size
-        blue.reshape(-1)[ids] = amb_val[0, :n_amb]
-        if guard:
-            blue[:, 0] = 0.0
-        np.testing.assert_array_equal(
-            blue.astype(np.uint8), np.asarray(lut_b).reshape(256, 256))
-
-
-def test_formula_table_caches_are_host_arrays():
-    """The lru-cached table builders must return numpy, not device arrays:
-    a first call during tracing (jit / shard_map) would otherwise cache
-    per-trace tracers and leak them into later traces (seen on v5e)."""
-    for tabs in (srgb.default_formula_tables(),
-                 srgb.suppressed_formula_tables_stacked(),
-                 srgb.suppressed_formula_tables(7)):
-        assert tabs is not None
-        for a in tabs:
-            assert type(a) is np.ndarray

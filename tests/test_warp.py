@@ -1,4 +1,4 @@
-"""Warp validation hardening (VERDICT r1 item 9).
+"""Warp validation hardening.
 
 Covers: annotation geolocation-grid points as a TPS control source (the
 lattice `gdalwarp -tps` reads from the raster, sourced from the annotation
